@@ -1,0 +1,203 @@
+"""The frame pipeline: scene tensors + camera matrices -> RGBA8 frame.
+
+The counterpart of the meshlet path of ``ash_renderer_tpu/pipeline.py``
+(``render_frame_fused_staged``).  Stages, each a plain call on tensors of
+one device:
+
+1. vertex transform (``setup_kernel.transform_vertices_T``);
+2. triangle setup, kernel K1 (``setup_kernel.triangle_setup``);
+3. clip tail (``_clip_tail_into``);
+4. key sort + run bounds, kernel K2 (``binsort.sort_and_bounds``);
+5. wide-pair expansion, range metadata and table gathers
+   (``expand_table``);
+6. raster + distribute, kernel K3 (``fused_kernel.rasterize_distribute``);
+7. shade + pack (``_shade_from_planes``).
+
+Stages 1-5 (the front) depend only on the scene and the model + MVP
+matrices, so ``FrontCache`` reuses them while those bytes stay the same.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ash_renderer_tpu.config import RasterConfig, RendererSettings
+
+from .ops import binsort, fused_kernel, geometry, setup_kernel, shade, tritables
+from . import specmath as sm
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameStatics:
+    """Static configuration of one settings/resize world."""
+
+    cfg: RasterConfig
+    settings: RendererSettings
+    has_atlas: bool
+    has_light: bool
+
+
+def _clip_tail_into(statics, tblT, tri_v, tri_mat, flags, comb):
+    """Clip tail + stats; tail comb rows are written in place into the rows
+    reserved after the main block (comb row T onward).  Returns (comb,
+    keys_tail, gstats)."""
+    cfg = statics.cfg
+    st = statics.settings
+    t = tri_v.shape[0]
+    needs_clip = ((flags >> 1) & 1).bool()
+    tail_f, (ta0, ta1, ta2), cstats = geometry.clip_tail_fused(
+        tblT, tri_v, tri_mat, needs_clip, cfg, st.clip_budget
+    )
+    comb[t:] = tritables.comb_rows(tail_f, ta0, ta1, ta2, cfg, id_base=t)
+    keys_tail = binsort.stream_keys(
+        tail_f["valid"], tail_f["x0"], tail_f["y0"], tail_f["x1"],
+        tail_f["y1"], tail_f["x2"], tail_f["y2"], cfg,
+    )
+    gstats = {
+        "clip_overflow": cstats["clip_overflow"],
+        "n_fast": ((flags >> 2) & 1).sum(),
+        "n_clipped": cstats["n_clipped"],
+        "n_valid": (flags & 1).sum() + tail_f["valid"].sum(),
+        "n_setup": comb.shape[0],
+    }
+    return comb, keys_tail, gstats
+
+
+def expand_table(statics, comb, order, bounds):
+    """Wide-pair expansion + range metadata + the live-prefix table gathers
+    on the sorted order.  Returns (rmeta, tbl_sorted, tbl_ext, sstats)."""
+    cfg = statics.cfg
+    st = statics.settings
+    n_tiles = cfg.n_tiles
+    pair_rows, pair_starts, new_ws = binsort.expand_wide_pairs(
+        comb, order, bounds, cfg, st.wide_rows, st.wide_pairs
+    )
+    rmeta = fused_kernel.build_range_meta(
+        bounds, n_tiles, cfg.grid_w, pair_starts, new_ws
+    )
+    edges = bounds[n_tiles * binsort.KEYS_PER_TILE :][:2].tolist()
+    ws, live_end = edges
+    n_pairs = int(pair_starts[-1])
+    tbl_sorted = tritables.sorted_table(comb, order.long(), live_end)
+    tbl_ext = tritables.sorted_table(comb, pair_rows.long(), n_pairs)
+    sstats = {
+        "n_wide": live_end - ws,
+        "wide_pairs_n": n_pairs,
+        "wide_leftover": live_end - new_ws,
+        "live_rows": live_end,
+    }
+    return rmeta, tbl_sorted, tbl_ext, sstats
+
+
+def _no_stage(name):
+    pass
+
+
+def render_front(statics, state, model_mats, mvp_mats, on_stage=_no_stage):
+    """Stages 1-5.  Returns (rmeta, tbl_sorted, tbl_ext, comb, stats).
+    ``on_stage(name)`` is called as each stage has been issued (a timing
+    probe records a CUDA event there)."""
+    st = statics.settings
+    tblT = setup_kernel.transform_vertices_T(
+        state.positions, state.vert_obj, state.normals, state.colors,
+        state.uvs, model_mats, mvp_mats,
+    )
+    on_stage("transform")
+    comb, keys_main, flags, _, _ = setup_kernel.triangle_setup(
+        tblT, state.ltT, state.matT, statics.cfg,
+        tail_rows=st.clip_budget * geometry.MAX_CLIP_TRIS,
+    )
+    on_stage("setup_K1")
+    comb, keys_tail, gstats = _clip_tail_into(
+        statics, tblT, state.tri_v, state.tri_mat, flags, comb
+    )
+    on_stage("clip_tail")
+    order, bounds = binsort.sort_and_bounds(
+        torch.cat([keys_main, keys_tail]), statics.cfg
+    )
+    on_stage("sort_bounds_K2")
+    rmeta, tbl_sorted, tbl_ext, sstats = expand_table(
+        statics, comb, order, bounds
+    )
+    on_stage("expand_meta_gather")
+    return rmeta, tbl_sorted, tbl_ext, comb, {**gstats, **sstats}
+
+
+def _shade_from_planes(statics, planes, camera_pos, materials, atlas, light):
+    """Shade the (n_tiles, 24, 1024) planes tile-flat, then lay the RGBA out
+    as the (height, width) image."""
+    cfg = statics.cfg
+    st = statics.settings
+    th, tw = cfg.tile_h, fused_kernel.TILE_W
+    gw, gh = cfg.grid_w, cfg.grid_h
+    valid = planes[:, fused_kernel.VIS_ROW, :] >= 0
+    attr = [sm.bitcast_f32(planes[:, i, :]) for i in range(12)]
+    duv = tuple(sm.bitcast_f32(planes[:, 12 + k, :]) for k in range(4))
+    rgba = shade.shade_surface(
+        valid, attr, planes[:, 16, :], duv,
+        materials=materials,
+        atlas=atlas if statics.has_atlas else None,
+        light=light if statics.has_light else None,
+        camera_pos=camera_pos,
+        clear_color=st.clear_color,
+    )
+
+    def to_image(x):
+        return (
+            x.reshape(gh, gw, th, tw, 4).permute(0, 2, 1, 3, 4)
+            .reshape(gh * th, gw * tw, 4)[: cfg.height, : cfg.width]
+        )
+
+    if st.supersample == 1:
+        return to_image(shade.resolve_and_pack(rgba, 1, st.srgb_output))
+    return shade.resolve_and_pack(to_image(rgba), st.supersample, st.srgb_output)
+
+
+class FrontCache:
+    """Frame-coherence memo for the front (stages 1-5).
+
+    The front is a pure function of the scene tensors and the model + MVP
+    matrices (camera_pos feeds only shading), so under a static camera its
+    outputs can be reused bit for bit.  ``key`` is the raw bytes of those
+    two matrices and nothing else; any motion misses and recomputes.  The
+    value holds comb too: phase D gathers winners from it."""
+
+    __slots__ = ("key", "value")
+
+    def __init__(self):
+        self.key = None
+        self.value = None
+
+
+def render_frame_fused_staged(statics: FrameStatics, state, model_mats,
+                              mvp_mats, camera_pos,
+                              front_cache: Optional[FrontCache] = None,
+                              front_key: Optional[bytes] = None,
+                              on_stage=_no_stage):
+    """One frame on ``state``'s device.  Returns (rgba8 (H, W, 4) uint8,
+    aux dict with vis_d16, vis_tri and the pipeline counters).  ``on_stage``
+    as in ``render_front``."""
+    use_cache = front_cache is not None and front_key is not None
+    if use_cache and front_cache.key == front_key:
+        front = front_cache.value
+    else:
+        if use_cache:
+            # drop the stale entry first so its ~1.4 GB of tables can be
+            # freed before the new ones are allocated
+            front_cache.key = front_cache.value = None
+        front = render_front(statics, state, model_mats, mvp_mats, on_stage)
+        if use_cache:
+            front_cache.key, front_cache.value = front_key, front
+    rmeta, tbl_sorted, tbl_ext, comb, stats = front
+    vis_d, vis_t, planes = fused_kernel.rasterize_distribute(
+        rmeta, tbl_sorted, tbl_ext, comb, statics.cfg
+    )
+    on_stage("raster_K3")
+    rgba8 = _shade_from_planes(
+        statics, planes, camera_pos, state.materials, state.atlas, state.light
+    )
+    on_stage("shade_pack")
+    return rgba8, {"vis_d16": vis_d, "vis_tri": vis_t, **stats}
