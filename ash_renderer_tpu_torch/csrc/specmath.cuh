@@ -129,4 +129,41 @@ __device__ __forceinline__ bool depth_key_better(int d_new, int id_new,
   return d_new < d_old || (d_new == d_old && id_new > id_old);
 }
 
+// float32 -> int32 as XLA's convert gives it (specmath.f32_to_i32_sat):
+// truncation toward zero, NaN -> 0, >= 2^31 -> INT_MAX, < -2^31 -> INT_MIN.
+// __float2int_rz is cvt.rzi.s32.f32, which saturates exactly so; it is
+// written out rather than left to a plain (int) cast.
+__device__ __forceinline__ int f32_to_i32_sat(float x) {
+  return __float2int_rz(x);
+}
+
+// torch.maximum / jnp.maximum: a NaN operand propagates (fmaxf would drop it)
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+
+// floor(log2(|x|)) of a normalized float, from its exponent bits
+__device__ __forceinline__ int float_exponent(float x) {
+  return ((bits(x) >> 23) & 0xFF) - 127;
+}
+
+constexpr float FLT_MIN_NORMAL = 1.1754944e-38f;
+
+// subnormals map to exactly 0 (the spec's definition)
+__device__ __forceinline__ float flush_subnormal(float v) {
+  return fabsf(v) < FLT_MIN_NORMAL ? 0.0f : v;
+}
+
+// x ** e for x in [0, 1], integer e < 2^max_bits: square and multiply in
+// the spec's fixed order, underflow flushed to 0
+__device__ __forceinline__ float powi(float x, int e, int max_bits) {
+  float result = 1.0f;
+  float base = x;
+  for (int bit = 0; bit < max_bits; ++bit) {
+    if ((e >> bit) & 1) result = fmul(result, base);
+    if (bit + 1 < max_bits) base = fmul(base, base);
+  }
+  return flush_subnormal(result);
+}
+
 }  // namespace ash

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ash_renderer_tpu.scene import Mesh
+from ..scene import Mesh
 
 F32 = np.float32
 I32 = np.int32

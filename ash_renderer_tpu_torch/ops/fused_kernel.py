@@ -1,10 +1,12 @@
-"""Raster + distribute: kernel K3 (phases V, D and E).
+"""Raster + distribute: kernel K3 (phases V, D and E) and its phase F
+variant K3F.
 
 ``rasterize_distribute`` launches ``csrc/raster.cu`` on CUDA tensors and
 runs ``rasterize_distribute_plain`` (the same function in torch ops) on CPU
 tensors.  It replaces the Pallas kernel ``ash_renderer_tpu/ops/
-fused_kernel.py:_kernel`` (via ``rasterize_distribute``) with
-``shade_mode=None`` and 8x128 tiles.
+fused_kernel.py:_kernel`` (via ``rasterize_distribute``) with 8x128 tiles:
+with ``shade_mode=None`` (K3) and with a shade mode set (K3F, which runs the
+surface half of shading, ``_phase_f``, inside the kernel).
 
 One CUDA block per 8x128 tile, one thread per pixel.  The block walks the
 tile's 7 ranges from ``rmeta`` (own, above, left, diag, wide and own-fine
@@ -20,12 +22,21 @@ replacing the reference's second stream and byte-plane matmuls; phase E is
 What bounds it on the card: integer issue in phase V (every streamed slot
 is evaluated at all 1024 pixels of its tile: 3.9 x 10^8 slot-pixel
 evaluations on the static 1.31M-triangle headline frame) and, for phase E,
-the 199 MB of planes written.
+the 199 MB of planes written.  Phase F adds ~160 float ops per covered
+pixel, small beside phase V.
 
-Planes, (n_tiles, 24, 1024) int32 per tile pixel (row*128 + col): rows
-0-11 interpolated attributes, 12-15 raw uv screen derivatives, 16 material,
-17 winner ids (-1 background), 18-23 zero.  Background pixels carry the NaN
-attributes the spec's zero fields give; consumers mask them by row 17.
+Planes, (n_tiles, 24, 1024) int32 per tile pixel (row*128 + col).  Phase E
+layout (``shade_mode=None``): rows 0-11 interpolated attributes, 12-15 raw
+uv screen derivatives, 16 material.  Phase F layout (``F_*`` below): the
+material-modulated colour, diffuse, specular, lit mask and the bilinear tap
+address.  Both: 17 winner ids (-1 background), 18-23 zero.  Background
+pixels carry the NaN attributes the spec's zero fields give; consumers mask
+them by row 17.
+
+Phase F reads its tables (materials, mip levels, light, camera position)
+from a small int32 constants tensor (``shade.pack_shade_consts``) that each
+block stages in shared memory; the reference's select trees over those
+tables become indexed loads on the same clamped indices.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ import torch
 from .. import _build
 from .. import specmath as sm
 from .binsort import FINE_W, KEYS_PER_TILE, N_FINE, N_GRP
-from .shade import interp_fields_stacked
+from .shade import interp_fields_stacked, shade_consts_layout, surface_prelight
 from .tritables import ID_COL, TBL_COLS
 
 N_RANGES = 7  # own, above, left, diag, wide, wide-pairs(ext), own-fine
@@ -49,6 +60,19 @@ COMB_USED = 48  # comb columns phase D gathers
 OUT_COLS = 24
 VIS_ROW = 17  # planes row carrying the winner ids
 KERNEL = "K3_raster"
+KERNEL_F = "K3F_raster_shade"
+
+# Phase F plane layout (shade_mode set): rows
+#   0-3  P = colour * material base (f32 bits)
+#   4-6  diffuse rgb (f32)        7  specular scalar (f32)
+#   8    lit mask (i32 0/1)       9  bilinear tap index (i32)
+#   10   fu (f32)   11 fv (f32)   12 texmask (i32 0/1)
+#   13-16 zero
+F_P, F_DIFF, F_SPEC, F_LIT, F_TAP, F_FU, F_FV, F_TEXMASK = (
+    0, 4, 7, 8, 9, 10, 11, 12
+)
+MAX_SHADE_M = 16  # pipeline.shade_mode_for's table caps
+MAX_SHADE_T = 2
 PLAIN_CHUNK = 2048  # (tile, slot) pairs per step of the plain version
 
 
@@ -105,16 +129,20 @@ def _check(name, x, dev, ndim, cols=None):
         )
 
 
-def rasterize_distribute(rmeta, tbl_sorted, tbl_ext, comb, cfg):
+def rasterize_distribute(rmeta, tbl_sorted, tbl_ext, comb, cfg,
+                         shade_mode=None, consts=None):
     """Visibility + winner-field distribute + interpolation over the tile
-    grid.  Returns (vis_d, vis_t) cropped to (height, width) and planes
+    grid, and with ``shade_mode`` set (``pipeline.shade_mode_for``) the
+    surface half of shading from ``consts`` (``shade.pack_shade_consts``).
+    Returns (vis_d, vis_t) cropped to (height, width) and planes
     (n_tiles, 24, 1024) int32.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel (K3, or K3F with a shade mode)."""
     dev = rmeta.device
     if cfg.tile_h != TILE_H or cfg.tile_w != TILE_W:
         raise ValueError("rasterize_distribute: tiles must be 8x128")
     if dev.type == "cpu":
-        return rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg)
+        return rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb,
+                                          cfg, shade_mode, consts)
     if dev.type != "cuda":
         raise ValueError(f"rasterize_distribute: unsupported device {dev}")
     n_tiles = cfg.n_tiles
@@ -129,12 +157,25 @@ def rasterize_distribute(rmeta, tbl_sorted, tbl_ext, comb, cfg):
     vis_t = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     planes = torch.empty((n_tiles, OUT_COLS, N_PIX), dtype=torch.int32,
                          device=dev)
-    _build.launch(
-        KERNEL, "ash_rasterize_distribute", dev,
-        rmeta.data_ptr(), tbl_sorted.data_ptr(), tbl_ext.data_ptr(),
-        comb.data_ptr(), vis_d.data_ptr(), vis_t.data_ptr(), planes.data_ptr(),
-        n_tiles, cfg.grid_w, cfg.min_coord, cfg.subpixel_scale,
-    )
+    args = (rmeta.data_ptr(), tbl_sorted.data_ptr(), tbl_ext.data_ptr(),
+            comb.data_ptr(), vis_d.data_ptr(), vis_t.data_ptr(),
+            planes.data_ptr(), n_tiles, cfg.grid_w, cfg.min_coord,
+            cfg.subpixel_scale)
+    if shade_mode is None:
+        _build.launch(KERNEL, "ash_rasterize_distribute", dev, *args)
+    else:
+        m_n, t_n, has_m, has_a, has_l = shade_mode
+        if m_n > MAX_SHADE_M or t_n > MAX_SHADE_T:
+            raise ValueError(f"rasterize_distribute: shade mode {shade_mode} "
+                             "is over the kernel's table caps")
+        _check("consts", consts, dev, 1)
+        if consts.shape[0] != shade_consts_layout(shade_mode)["_total"]:
+            raise ValueError("rasterize_distribute: consts do not fit the "
+                             f"shade mode {shade_mode}")
+        _build.launch(
+            KERNEL_F, "ash_rasterize_shade", dev, *args, consts.data_ptr(),
+            consts.shape[0], m_n, t_n, int(has_m), int(has_a), int(has_l),
+        )
     return vis_d[: cfg.height, : cfg.width], vis_t[: cfg.height, : cfg.width], planes
 
 
@@ -151,11 +192,13 @@ def _range_pairs(rmeta, n_tiles):
     return run // N_RANGES, run % N_RANGES, pos
 
 
-def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg):
+def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
+                               shade_mode=None, consts=None):
     """rasterize_distribute in torch ops (any device): every streamed
     (tile, slot) pair is evaluated at the tile's 1024 pixels in chunks, and
     the per-pixel minimum of (d16, -id) is a scatter-min of a packed 64-bit
-    key."""
+    key; with ``shade_mode`` set, rows 0-16 take the phase F layout
+    (``phase_f_plain``)."""
     dev = rmeta.device
     i32, i64 = torch.int32, torch.int64
     n_tiles = cfg.n_tiles
@@ -222,7 +265,16 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg):
     tt = torch.arange(n_tiles, device=dev)[:, None]
     px = (tt % gw) * TILE_W + (pix % TILE_W)
     py = (tt // gw) * TILE_H + pix // TILE_W
-    planes[:, :VIS_ROW] = interp_planes(o, px.to(i32), py.to(i32), cfg)
+    attr, duv, mat = phase_e(o, px.to(i32), py.to(i32), cfg)
+    if shade_mode is None:
+        planes[:, :VIS_ROW] = torch.cat(
+            [sm.bitcast_i32(attr)]
+            + [sm.bitcast_i32(d)[..., None, :] for d in duv]
+            + [mat[..., None, :]],
+            dim=-2,
+        )
+    else:
+        planes[:, :VIS_ROW] = phase_f_plain(attr, duv, mat, shade_mode, consts)
     planes[:, VIS_ROW] = vis_t.reshape(n_tiles, N_PIX)
     hp, wp = cfg.grid_h * TILE_H, cfg.grid_w * TILE_W
 
@@ -235,9 +287,9 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg):
     return to_image(vis_d), to_image(vis_t), planes
 
 
-def interp_planes(o, px, py, cfg):
-    """Phase E: (..., 48) winner fields -> (..., 17, N) planes rows 0-16
-    (interpolated attributes, raw uv derivatives, material)."""
+def phase_e(o, px, py, cfg):
+    """Phase E: (..., N, 48) winner fields -> (attr (..., 12, N) f32, the 4
+    raw uv derivatives (..., N) f32, material (..., N) i32)."""
     off = -cfg.min_coord
     o = o.movedim(-1, -2)  # (..., 48, N)
 
@@ -257,9 +309,17 @@ def interp_planes(o, px, py, cfg):
     a1 = sm.bitcast_f32(o[..., 22:34, :])
     a2 = sm.bitcast_f32(o[..., 34:46, :])
     attr, duv = interp_fields_stacked(g, a0, a1, a2, px, py, cfg)
-    return torch.cat(
-        [sm.bitcast_i32(attr)]
-        + [sm.bitcast_i32(d)[..., None, :] for d in duv]
-        + [o[..., 9:10, :]],
-        dim=-2,
-    )
+    return attr, duv, o[..., 9, :]
+
+
+def phase_f_plain(attr, duv, mat_row, shade_mode, consts):
+    """Phase F in torch ops: ``shade.surface_prelight`` (the reference's
+    ``_phase_f``, op for op) laid out as the (..., 17, N) int32 rows 0-16 of
+    the F layout."""
+    p, diffuse, spec, lit, tap, fu, fv, texmask = surface_prelight(
+        attr, duv, mat_row, shade_mode, consts)
+    rows = [sm.bitcast_i32(spec), lit, tap, sm.bitcast_i32(fu),
+            sm.bitcast_i32(fv), texmask]
+    rows += [torch.zeros_like(lit)] * (VIS_ROW - F_TEXMASK - 1)
+    return torch.cat([sm.bitcast_i32(p), sm.bitcast_i32(diffuse),
+                      torch.stack(rows, dim=-2)], dim=-2)

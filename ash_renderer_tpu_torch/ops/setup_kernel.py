@@ -29,10 +29,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ash_renderer_tpu.scene import MESHLET_TRIS, MESHLET_VERTS
-
 from .. import _build
 from .. import specmath as sm
+from ..scene import MESHLET_TRIS, MESHLET_VERTS
 from . import binsort
 from .tritables import ID_COL, TBL_COLS
 

@@ -1,7 +1,9 @@
 """Deferred shading in torch ops (counterpart of the fused path's subset of
 ``ash_renderer_tpu/ops/shade.py``): the interpolation half the raster
-kernel's phase E runs, the surface half (material, mip selection, bilinear
-texture tap, Blinn-Phong, clear) and the resolve + RGBA8 pack.
+kernel's phase E runs, the surface half up to the texture tap
+(``surface_prelight``, which the raster kernel's phase F runs on the card),
+the rest (``combine_from_prelight``: texture tap, lighting combine, clear)
+and the resolve + RGBA8 pack.
 
 Every op is a single IEEE float32 mul/add/sub, a select, an integer op or a
 table gather, in the spec's association, so results equal the reference's
@@ -95,128 +97,221 @@ def interp_fields_stacked(g, A0, A1, A2, px, py, cfg):
     return attr, (durx, dvrx, dury, dvry)
 
 
-def _normalize3(v):
-    """Vector normalize via the spec rsqrt; zero-safe.  Returns (v / |v|,
-    |v|^2)."""
-    n2 = sm.dot3(v[..., 0], v[..., 0], v[..., 1], v[..., 1], v[..., 2], v[..., 2])
-    inv = sm.rsqrt_spec(torch.clamp(n2, min=_f32(1e-30)))
-    return v * inv[..., None], n2
+def shade_consts_layout(shade_mode):
+    """Offsets of the shade constants in ``pack_shade_consts``' tensor, in
+    the reference's order (``fused_kernel.py:shade_consts_layout``).
+    shade_mode = (M, T, has_materials, has_atlas, has_light)."""
+    m, t, has_m, has_a, has_l = shade_mode
+    off = {}
+    pos = 0
+
+    def add(name, n):
+        nonlocal pos
+        off[name] = pos
+        pos += n
+
+    if has_m:
+        add("base", m * 4)
+        add("texid", m)
+        add("spec", m)
+        add("shin", m)
+    if has_a:
+        add("loff", t * MAX_LEVELS)
+        add("lw", t * MAX_LEVELS)
+        add("lh", t * MAX_LEVELS)
+        add("nlev", t)
+    if has_l:
+        add("ldir", 3)
+        add("lcol", 3)
+        add("amb", 1)
+    add("cam", 3)
+    off["_total"] = pos
+    return off
 
 
-def _mip_from_raws(duv, atlas, tex_id):
-    """Nearest mip level from the raw uv derivatives: floor(log2 of the
-    larger texel footprint), from exponent bits."""
-    durx, dvrx, dury, dvry = duv
-    tex_c = torch.clamp(tex_id, 0, atlas.level_w.shape[0] - 1)
-    bw = _take(atlas.level_w[:, 0], tex_c).to(F32)
-    bh = _take(atlas.level_h[:, 0], tex_c).to(F32)
-    nl = _take(atlas.n_levels, tex_c)
+def pack_shade_consts(shade_mode, materials, atlas, light, camera_pos):
+    """The shading tables (materials, mip levels, light, camera position) as
+    one (n,) int32 tensor on camera_pos's device, floats as their bits, laid
+    out by ``shade_consts_layout``.  Device ops only, so a new camera
+    position per frame costs no host sync."""
+    _, _, has_m, has_a, has_l = shade_mode
 
-    def footprint2(dur, dvr):
-        du = dur * bw
-        dv = dvr * bh
-        return du * du + dv * dv
+    def fb(x):
+        return sm.bitcast_i32(x.to(F32).reshape(-1))
 
-    rho2 = torch.maximum(footprint2(durx, dvrx), footprint2(dury, dvry))
-    rho2 = torch.clamp(rho2, min=_f32(1e-20))
-    level = sm.float_exponent(rho2) >> 1
-    hi = torch.clamp(nl - 1, min=0)
-    return torch.minimum(torch.clamp(level, min=0), hi).to(I32)
+    def ib(x):
+        return x.to(I32).reshape(-1)
+
+    parts = []
+    if has_m:
+        parts += [fb(materials.base_color), ib(materials.tex_id),
+                  fb(materials.specular), ib(materials.shininess)]
+    if has_a:
+        parts += [ib(atlas.level_offset), ib(atlas.level_w),
+                  ib(atlas.level_h), ib(atlas.n_levels)]
+    if has_l:
+        parts += [fb(light.direction), fb(light.color), fb(light.ambient)]
+    parts.append(fb(camera_pos))
+    return torch.cat(parts)
+
+
+def tex_address(off, w, h, u, v):
+    """The addressing half of a wrap-addressed bilinear tap on the level at
+    quad-table offset ``off`` of ``w`` x ``h`` texels: (the 2x2 quad's row
+    index, fu, fv)."""
+    # background pixels carry NaN uv (masked later): zero them before the
+    # float -> int casts, which saturate as XLA's do
+    u = torch.where(torch.isfinite(u), u, torch.zeros_like(u))
+    v = torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+    ut = u * w.to(F32) - 0.5
+    vt = v * h.to(F32) - 0.5
+    iu0 = sm.f32_to_i32_sat(torch.floor(ut))
+    iv0 = sm.f32_to_i32_sat(torch.floor(vt))
+    fu = ut - iu0.to(F32)
+    fv = vt - iv0.to(F32)
+    tap = off + torch.remainder(iv0, h) * w + torch.remainder(iu0, w)
+    return tap, fu, fv
+
+
+_TEXEL_SHIFTS = (0, 8, 16, 24)
+
+
+def bilinear(quads, tap, fu, fv):
+    """The tap half: one quad-table row gather fetches the 2x2 footprint
+    (c00, c10, c01, c11, RGBA8 each), then two lerps along u and one along
+    v.  Returns (..., 4) f32 RGBA."""
+    quad = _take(quads, tap)  # (..., 4) packed texels
+    shifts = torch.tensor(_TEXEL_SHIFTS, dtype=I32, device=quad.device)
+    # (..., corner, channel)
+    c = ((quad[..., :, None] >> shifts) & 255).to(F32) * _f32(1.0 / 255.0)
+    top = sm.lerp(c[..., 0, :], c[..., 1, :], fu[..., None])
+    bot = sm.lerp(c[..., 2, :], c[..., 3, :], fu[..., None])
+    return sm.lerp(top, bot, fv[..., None])
 
 
 def sample_texture(atlas, tex_id, u, v, level):
-    """Wrap-addressed bilinear tap at an explicit mip level; one quad-table
-    row gather fetches the 2x2 footprint."""
+    """Wrap-addressed bilinear tap of texture ``tex_id`` at an explicit mip
+    level.  Returns (..., 4) f32 RGBA."""
     tex_c = torch.clamp(tex_id, 0, atlas.level_offset.shape[0] - 1)
     flat = tex_c * MAX_LEVELS + level
     off = _take(atlas.level_offset.reshape(-1), flat)
     w = _take(atlas.level_w.reshape(-1), flat)
     h = _take(atlas.level_h.reshape(-1), flat)
-    # background pixels carry NaN uv (masked later): zero them before the
-    # float -> int casts
-    u = torch.where(torch.isfinite(u), u, torch.zeros_like(u))
-    v = torch.where(torch.isfinite(v), v, torch.zeros_like(v))
-    ut = u * w.to(F32) - 0.5
-    vt = v * h.to(F32) - 0.5
-    iu0 = torch.floor(ut).to(I32)
-    iv0 = torch.floor(vt).to(I32)
-    fu = ut - iu0.to(F32)
-    fv = vt - iv0.to(F32)
-    tap = off + torch.remainder(iv0, h) * w + torch.remainder(iu0, w)
-    quad = _take(atlas.quads, tap)  # (..., 4) packed texels
-    k = _f32(1.0 / 255.0)
-
-    def unpack(t32):
-        return torch.stack(
-            [((t32 >> s) & 255).to(F32) * k for s in (0, 8, 16, 24)], dim=-1
-        )
-
-    c00 = unpack(quad[..., 0])
-    c10 = unpack(quad[..., 1])
-    c01 = unpack(quad[..., 2])
-    c11 = unpack(quad[..., 3])
-    top = sm.lerp(c00, c10, fu[..., None])
-    bot = sm.lerp(c01, c11, fu[..., None])
-    return sm.lerp(top, bot, fv[..., None])
+    return bilinear(atlas.quads, *tex_address(off, w, h, u, v))
 
 
-def shade_surface(valid, attr, mat_id, duv, materials=None, atlas=None,
-                  light=None, camera_pos=None, clear_color=(0.0, 0.0, 0.0, 1.0)):
-    """The surface half of shading from interpolated values: material
-    modulation, mip selection + texture tap, Blinn-Phong, background clear.
-    attr: list of 12 channel tensors; duv: (durx, dvrx, dury, dvry).
-    Returns (..., 4) f32 RGBA."""
-    color = torch.stack(attr[0:4], dim=-1)
-    normal = torch.stack(attr[4:7], dim=-1)
-    u, v = attr[7], attr[8]
-    wpos = torch.stack(attr[9:12], dim=-1)
+def surface_prelight(attr, duv, mat_row, shade_mode, consts):
+    """The surface half of shading up to the texture tap, from the
+    interpolated attributes (..., 12, N), the raw uv derivatives and the
+    winner's material row: material base modulation, mip level, tap
+    address, Blinn-Phong diffuse and specular, lit mask.  The reference's
+    ``_phase_f`` (``fused_kernel.py:128-270``) op for op: the raster
+    kernel's phase F computes the same on the card, and the phase E route
+    runs it here on the planes.  Its select trees over the tables in
+    ``consts`` (``pack_shade_consts``) become indexed loads on the same
+    clamped indices.
 
-    rgba = color
-    if materials is not None:
-        mat = torch.clamp(mat_id, 0, materials.base_color.shape[0] - 1)
-        rgba = rgba * _take(materials.base_color, mat)
-        if atlas is not None:
-            tex_id = _take(materials.tex_id, mat)
-            level = _mip_from_raws(duv, atlas, tex_id)
-            texel = sample_texture(atlas, tex_id, u, v, level)
-            rgba = torch.where((tex_id >= 0)[..., None], rgba * texel, rgba)
+    Returns (p (..., 4, N) colour * base, diffuse (..., 3, N), spec, lit,
+    tap, fu, fv, texmask), the arguments of ``combine_from_prelight``."""
+    m_n, t_n, has_m, has_a, has_l = shade_mode
+    lay = shade_consts_layout(shade_mode)
+    ci = consts  # int words
+    cf = sm.bitcast_f32(consts)  # the same words as floats
+    nx, ny, nz = attr[..., 4, :], attr[..., 5, :], attr[..., 6, :]
+    u, v = attr[..., 7, :], attr[..., 8, :]
+    wx, wy, wz = attr[..., 9, :], attr[..., 10, :], attr[..., 11, :]
+    zf = torch.zeros_like(u)
+    zi = torch.zeros_like(mat_row)
+    p = attr[..., 0:4, :]
+    tap, fu, fv, texmask = zi, zf, zf, zi
+    diffuse = torch.zeros_like(attr[..., 4:7, :])
+    spec, lit = zf, zi
 
-    if light is not None:
-        n, n2 = _normalize3(normal)
-        lit = n2 > _f32(1e-12)  # vertices without normals stay unlit
-        ldir, _ = _normalize3(light.direction.expand(normal.shape))
-        ndotl = torch.clamp(
-            -sm.dot3(
-                n[..., 0], ldir[..., 0], n[..., 1], ldir[..., 1], n[..., 2],
-                ldir[..., 2],
-            ),
-            min=0.0,
-        )
-        diffuse = light.ambient + ndotl[..., None] * light.color
-        rgb = rgba[..., :3] * diffuse
-        if materials is not None and camera_pos is not None:
-            spec_k = _take(materials.specular, mat)
-            shin = _take(materials.shininess, mat)
-            vdir, _ = _normalize3(camera_pos - wpos)
-            hv, _ = _normalize3(vdir - ldir)
-            ndoth = torch.clamp(
-                sm.dot3(
-                    n[..., 0], hv[..., 0], n[..., 1], hv[..., 1], n[..., 2],
-                    hv[..., 2],
-                ),
-                min=0.0,
+    if has_m:
+        mat = torch.clamp(mat_row, 0, m_n - 1).long()
+        ch = torch.arange(4, device=mat.device)[:, None]
+        p = p * cf[lay["base"] + 4 * mat[..., None, :] + ch]
+        if has_a:
+            durx, dvrx, dury, dvry = duv
+            tex_id = ci[lay["texid"] + mat]
+            # the mip level: floor(log2 of the larger texel footprint), from
+            # exponent bits
+            tex_c = torch.clamp(tex_id, 0, t_n - 1).long()
+            bw = ci[lay["lw"] + tex_c * MAX_LEVELS].to(F32)
+            bh = ci[lay["lh"] + tex_c * MAX_LEVELS].to(F32)
+            nl = ci[lay["nlev"] + tex_c]
+
+            def footprint2(dur, dvr):
+                du = dur * bw
+                dv = dvr * bh
+                return du * du + dv * dv
+
+            rho2 = torch.maximum(footprint2(durx, dvrx),
+                                 footprint2(dury, dvry))
+            rho2 = torch.clamp(rho2, min=_f32(1e-20))
+            level = torch.minimum(
+                torch.clamp(sm.float_exponent(rho2) >> 1, min=0),
+                torch.clamp(nl - 1, min=0),
             )
-            spec = sm.powi(ndoth, shin, 8) * spec_k
-            rgb = rgb + spec[..., None] * light.color
-        rgba = torch.cat(
-            [torch.where(lit[..., None], rgb, rgba[..., :3]), rgba[..., 3:4]],
-            dim=-1,
-        )
+            flat = tex_c * MAX_LEVELS + level
+            tap, fu, fv = tex_address(ci[lay["loff"] + flat],
+                                      ci[lay["lw"] + flat],
+                                      ci[lay["lh"] + flat], u, v)
+            texmask = (tex_id >= 0).to(I32)
 
+    if has_l:
+        n2 = sm.dot3(nx, nx, ny, ny, nz, nz)
+        invn = sm.rsqrt_spec(torch.clamp(n2, min=_f32(1e-30)))
+        nhx, nhy, nhz = nx * invn, ny * invn, nz * invn
+        lit = (n2 > _f32(1e-12)).to(I32)  # vertices without normals stay unlit
+        ld0 = [cf[lay["ldir"] + i] for i in range(3)]
+        d2 = sm.dot3(ld0[0], ld0[0], ld0[1], ld0[1], ld0[2], ld0[2])
+        invd = sm.rsqrt_spec(torch.clamp(d2, min=_f32(1e-30)))
+        ldx, ldy, ldz = ld0[0] * invd, ld0[1] * invd, ld0[2] * invd
+        ndotl = torch.clamp(-sm.dot3(nhx, ldx, nhy, ldy, nhz, ldz), min=0.0)
+        lcol = cf[lay["lcol"] : lay["lcol"] + 3][:, None]
+        diffuse = cf[lay["amb"]] + ndotl[..., None, :] * lcol
+        if has_m:
+            sk = cf[lay["spec"] + mat]
+            sh = ci[lay["shin"] + mat]
+            vx = cf[lay["cam"]] - wx
+            vy = cf[lay["cam"] + 1] - wy
+            vz = cf[lay["cam"] + 2] - wz
+            v2 = sm.dot3(vx, vx, vy, vy, vz, vz)
+            invv = sm.rsqrt_spec(torch.clamp(v2, min=_f32(1e-30)))
+            vhx, vhy, vhz = vx * invv, vy * invv, vz * invv
+            hx, hy, hz = vhx - ldx, vhy - ldy, vhz - ldz
+            h2 = sm.dot3(hx, hx, hy, hy, hz, hz)
+            invh = sm.rsqrt_spec(torch.clamp(h2, min=_f32(1e-30)))
+            hhx, hhy, hhz = hx * invh, hy * invh, hz * invh
+            ndoth = torch.clamp(sm.dot3(nhx, hhx, nhy, hhy, nhz, hhz), min=0.0)
+            spec = sm.powi(ndoth, sh, 8) * sk
+
+    return p, diffuse, spec, lit, tap, fu, fv, texmask
+
+
+def combine_from_prelight(valid, p, diffuse, spec, lit, tap, fu, fv, texmask,
+                          atlas=None, light=None, has_materials=True,
+                          clear_color=(0.0, 0.0, 0.0, 1.0)):
+    """The rest of shading after ``surface_prelight`` (or the raster
+    kernel's phase F planes, which hold the same values): quad gather +
+    bilinear lerp, texture modulation, lighting combine, background clear.
+    p: (..., 4, N) colour * base; diffuse: (..., 3, N); the others (..., N).
+    atlas None = no texture stage; light None = no lighting stage.  Returns
+    (..., N, 4) f32 RGBA."""
+    if atlas is not None:
+        texel = bilinear(atlas.quads, tap, fu, fv).movedim(-1, -2)
+        p = torch.where((texmask != 0)[..., None, :], p * texel, p)
+    if light is not None:
+        rgb = p[..., :3, :] * diffuse
+        if has_materials:
+            rgb = rgb + spec[..., None, :] * light.color[:, None]
+        p = torch.cat([torch.where((lit != 0)[..., None, :], rgb, p[..., :3, :]),
+                       p[..., 3:, :]], dim=-2)
     clear = torch.tensor(
-        np.asarray(clear_color, dtype=np.float32), device=rgba.device
+        np.asarray(clear_color, dtype=np.float32), device=p.device
     )
-    return torch.where(valid[..., None], rgba, clear)
+    return torch.where(valid[..., None], p.movedim(-2, -1), clear)
 
 
 def resolve_and_pack(rgba, supersample: int, srgb: bool):

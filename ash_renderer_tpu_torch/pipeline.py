@@ -10,8 +10,12 @@ one device:
 4. key sort + run bounds, kernel K2 (``binsort.sort_and_bounds``);
 5. wide-pair expansion, range metadata and table gathers
    (``expand_table``);
-6. raster + distribute, kernel K3 (``fused_kernel.rasterize_distribute``);
-7. shade + pack (``_shade_from_planes``).
+6. raster + distribute, kernel K3 (``fused_kernel.rasterize_distribute``),
+   or K3F, which also runs the surface half of shading (phase F) when
+   ``shade_mode_for`` gives a shade mode;
+7. shade + pack (``_shade_from_planes``): the surface half of shading
+   from the phase E planes (``shade.surface_prelight``, the torch
+   definition phase F follows), then the texture tap and the combine.
 
 Stages 1-5 (the front) depend only on the scene and the model + MVP
 matrices, so ``FrontCache`` reuses them while those bytes stay the same.
@@ -24,10 +28,8 @@ from typing import Optional
 
 import torch
 
-from ash_renderer_tpu.config import RasterConfig, RendererSettings
-
+from .config import RasterConfig, RendererSettings
 from .ops import binsort, fused_kernel, geometry, setup_kernel, shade, tritables
-from . import specmath as sm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,23 +128,63 @@ def render_front(statics, state, model_mats, mvp_mats, on_stage=_no_stage):
     return rmeta, tbl_sorted, tbl_ext, comb, {**gstats, **sstats}
 
 
-def _shade_from_planes(statics, planes, camera_pos, materials, atlas, light):
+def surface_mode(statics, materials, atlas, light):
+    """The scene's shading configuration (M, T, has_materials, has_atlas,
+    has_light), as the reference's ``shade_mode_for`` derives it.  The
+    port's scene state always holds its materials, as the reference
+    Renderer's ``has_materials=True`` does."""
+    has_m = materials is not None
+    has_a = has_m and statics.has_atlas and atlas is not None
+    has_l = statics.has_light and light is not None
+    m_n = materials.base_color.shape[0] if has_m else 0
+    t_n = atlas.level_offset.shape[0] if has_a else 0
+    return (m_n, t_n, has_m, has_a, has_l)
+
+
+def shade_mode_for(statics, materials, atlas, light):
+    """The phase F shading configuration (``surface_mode``), or None for the
+    phase E planes: the reference's routing (``pipeline.py:123-144``).  None
+    when the knob is "off", when the tables are over the kernel's caps
+    (M > 16 or T > 2), and under "auto" for a textured scene."""
+    knob = statics.settings.fused_surface_shade
+    if knob == "off":
+        return None
+    mode = surface_mode(statics, materials, atlas, light)
+    m_n, t_n, has_m, has_a, _ = mode
+    if ((has_m and m_n > fused_kernel.MAX_SHADE_M)
+            or (has_a and t_n > fused_kernel.MAX_SHADE_T)):
+        return None
+    if knob == "auto" and has_a:
+        return None
+    return mode
+
+
+def _shade_from_planes(statics, planes, mode, consts, phase_f, atlas, light):
     """Shade the (n_tiles, 24, 1024) planes tile-flat, then lay the RGBA out
-    as the (height, width) image."""
+    as the (height, width) image.  ``mode`` and ``consts``: the scene's
+    ``surface_mode`` and its packed tables; ``phase_f``: whether the planes
+    hold the phase F layout (the surface half is done) or phase E's (it is
+    run here, ``shade.surface_prelight``).  ``atlas`` and ``light`` are None
+    where the scene has none."""
     cfg = statics.cfg
     st = statics.settings
     th, tw = cfg.tile_h, fused_kernel.TILE_W
     gw, gh = cfg.grid_w, cfg.grid_h
-    valid = planes[:, fused_kernel.VIS_ROW, :] >= 0
-    attr = [sm.bitcast_f32(planes[:, i, :]) for i in range(12)]
-    duv = tuple(sm.bitcast_f32(planes[:, 12 + k, :]) for k in range(4))
-    rgba = shade.shade_surface(
-        valid, attr, planes[:, 16, :], duv,
-        materials=materials,
-        atlas=atlas if statics.has_atlas else None,
-        light=light if statics.has_light else None,
-        camera_pos=camera_pos,
-        clear_color=st.clear_color,
+    _, _, has_m, has_a, has_l = mode
+    pf = planes.view(torch.float32)
+    if phase_f:
+        fk = fused_kernel
+        pre = (pf[:, fk.F_P : fk.F_P + 4], pf[:, fk.F_DIFF : fk.F_DIFF + 3],
+               pf[:, fk.F_SPEC], planes[:, fk.F_LIT], planes[:, fk.F_TAP],
+               pf[:, fk.F_FU], pf[:, fk.F_FV], planes[:, fk.F_TEXMASK])
+    else:
+        pre = shade.surface_prelight(
+            pf[:, 0:12], tuple(pf[:, 12 + k] for k in range(4)), planes[:, 16],
+            mode, consts)
+    rgba = shade.combine_from_prelight(
+        planes[:, fused_kernel.VIS_ROW] >= 0, *pre,
+        atlas=atlas if has_a else None, light=light if has_l else None,
+        has_materials=has_m, clear_color=st.clear_color,
     )
 
     def to_image(x):
@@ -192,12 +234,18 @@ def render_frame_fused_staged(statics: FrameStatics, state, model_mats,
         if use_cache:
             front_cache.key, front_cache.value = front_key, front
     rmeta, tbl_sorted, tbl_ext, comb, stats = front
+    atlas = state.atlas if statics.has_atlas else None
+    light = state.light if statics.has_light else None
+    mode = surface_mode(statics, state.materials, atlas, light)
+    consts = shade.pack_shade_consts(mode, state.materials, atlas, light,
+                                     camera_pos)
+    smode = shade_mode_for(statics, state.materials, atlas, light)
     vis_d, vis_t, planes = fused_kernel.rasterize_distribute(
-        rmeta, tbl_sorted, tbl_ext, comb, statics.cfg
+        rmeta, tbl_sorted, tbl_ext, comb, statics.cfg, smode,
+        None if smode is None else consts,
     )
     on_stage("raster_K3")
-    rgba8 = _shade_from_planes(
-        statics, planes, camera_pos, state.materials, state.atlas, state.light
-    )
+    rgba8 = _shade_from_planes(statics, planes, mode, consts,
+                               smode is not None, atlas, light)
     on_stage("shade_pack")
     return rgba8, {"vis_d16": vis_d, "vis_tri": vis_t, **stats}

@@ -9,13 +9,14 @@ the ring, ``frames_in_flight`` frames later (the swapchain fence analogue of
 
 from __future__ import annotations
 
+import binascii
 import collections
+import struct
+import zlib
 from typing import Callable, Optional
 
 import numpy as np
 import torch
-
-from ash_renderer_tpu import native
 
 
 class FrameRing:
@@ -60,9 +61,20 @@ class FrameRing:
 
 
 def write_png(path: str, rgba8: np.ndarray) -> None:
-    """PNG through the native writer, else through PIL."""
-    if native.write_png(path, rgba8):
-        return
-    from PIL import Image
+    """Write an (H, W, 4) uint8 frame as an 8-bit RGBA PNG, with the
+    standard library only (zlib for IDAT, CRC-32 per chunk)."""
+    img = np.ascontiguousarray(rgba8, dtype=np.uint8)
+    h, w = img.shape[:2]
+    # every scanline starts with filter type 0 (none)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 4)],
+                         axis=1).tobytes()
 
-    Image.fromarray(np.ascontiguousarray(rgba8), mode="RGBA").save(path)
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", binascii.crc32(tag + data)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))

@@ -21,12 +21,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ash_renderer_tpu.camera import Camera
-from ash_renderer_tpu.config import RendererSettings, derive_raster_config
-from ash_renderer_tpu.scene import Scene
-from ash_renderer_tpu.utils.profiling import FrameStats
-
 from . import state as state_mod
+from .camera import Camera
+from .config import RendererSettings, derive_raster_config
+from .profiling import FrameStats
+from .scene import Scene
 from .pipeline import FrameStatics, FrontCache, _no_stage, render_frame_fused_staged
 from .present import FrameRing
 

@@ -45,6 +45,21 @@ def bitcast_f32(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(F32)
 
 
+_I32_MAX = 2147483647
+_I32_MIN = -2147483648
+_F32_BELOW_2_31 = 2147483520.0  # the largest float32 below 2**31
+
+
+def f32_to_i32_sat(x):
+    """float32 -> int32 as XLA's convert (and CUDA's ``cvt.rzi.s32.f32``)
+    gives it: truncation toward zero, NaN -> 0, x >= 2**31 -> 2147483647,
+    x < -2**31 -> -2147483648.  torch's own CPU cast turns every
+    out-of-range value into -2147483648 instead."""
+    inside = torch.clamp(x, _I32_MIN, _F32_BELOW_2_31)
+    inside = torch.where(torch.isnan(x), torch.zeros_like(x), inside)
+    return torch.where(x >= 2147483648.0, _I32_MAX, inside.to(I32))
+
+
 # ---------------------------------------------------------------------------
 # Orientation, edges, fill rule
 # ---------------------------------------------------------------------------

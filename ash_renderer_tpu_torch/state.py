@@ -10,10 +10,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ash_renderer_tpu.scene import PackedScene
-
 from .ops import setup_kernel
 from .rtypes import LightPack, MaterialsPack
+from .scene import PackedScene
 from .textures import TextureAtlas
 
 F32 = np.float32

@@ -7,7 +7,10 @@ Needs one CUDA card; imports nothing of JAX.  Phases (each prints its
 lines and seconds; any failure raises and the exit code is non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the CUDA kernels from ``ash_renderer_tpu_torch/csrc``;
+2. build the CUDA kernels and the native meshlet builder from
+   ``ash_renderer_tpu_torch/csrc`` (one compiler process per source, all
+   at once; ptxas register and spill counts printed), and hold the native
+   meshlet builder equal to the Python one;
 3. each kernel against its plain torch version on the card, on config4 at
    subdiv 5 (20,480 triangles, 1080p), at the static camera and at a
    grazing fly-by camera (clip tail, wide pairs, fine runs);
@@ -19,10 +22,23 @@ lines and seconds; any failure raises and the exit code is non-zero):
    off, static cached, orbit, fly-by) and ms per stage;
 7. each kernel against its plain version at the headline shapes (subdiv
    8, static and fly-by cameras), bit for bit as in phase 3, with each
-   kernel's and plain version's CUDA-event ms at the static camera.
+   kernel's and plain version's CUDA-event ms at the static camera;
+8. K3F (the raster kernel with phase F) against its plain version, bit
+   for bit: on config3 (5,120 untextured triangles, 800x600) at the static
+   camera and an orbit camera, and on config4 subdiv 8 with
+   ``fused_surface_shade="on"`` at the static camera (timed) and fly-by
+   frame 12;
+9. the phase F path through ``Renderer``, launch counts zeroed before it:
+   config3 with "auto" (phase F) equals config3 with "off" (phase E) byte
+   for byte; config4 subdiv 5 and subdiv 8 with "on" equal their goldens;
+   static -> moved -> static with "on"; K3F must have launched;
+10. CUDA-event frame ms: config3 "auto" vs "off", and config4 subdiv 8
+   static uncached "on" vs "auto", in turns.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (its
+time, its plain version's, its bound and, where one PyTorch call computes
+the same function, that call's time); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -37,6 +53,17 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 24
 SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's 1.98 GHz boost clock
+# Bounds (the least time the card could take for a kernel's work): bytes
+# over the H100 SXM's 3.35 TB/s HBM rate, operations over its 67 TFLOP/s
+# float32 rate outside the tensor cores (integer ops counted at the same
+# rate, which only lowers the bound); the larger of the two binds.
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+# operations per unit of work, counted from the kernels' sources
+K1_OPS_PER_TRI = 150  # 3 corner snaps, outcodes, area, recip_spec, depths
+K2_OPS_PER_KEY = 2  # one compare, one store
+K3_OPS_PER_SLOT_PX = 20  # 3 edge functions (5 ops each), 3 compares, 2 ands
+K3F_OPS_PER_PX = 160  # phase F: 3 rsqrt_spec chains, powi, mip and tap math
 
 
 def say(msg: str) -> None:
@@ -71,16 +98,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ensure_native_meshlets() -> None:
-    """Build the reference's native meshlet builder (the pure-Python one
-    gives identical meshlets, slower) when it is missing."""
-    so = os.path.join(ROOT, "ash_renderer_tpu", "native", "libashtpu.so")
-    if not os.path.exists(so):
-        subprocess.run(
-            ["make", "-C", os.path.join(ROOT, "ash_renderer_tpu", "native")],
-            capture_output=True, text=True, timeout=300,
-        )
-    say(f"native meshlet builder: {'yes' if os.path.exists(so) else 'no'}")
+def check_native_meshlets() -> None:
+    """The port's native meshlet builder (built in phase 2) must give the
+    Python builder's arrays; scenes are packed with it from here on."""
+    import numpy as np
+
+    from ash_renderer_tpu_torch import native, scene
+    from ash_renderer_tpu_torch.benchmarks import config3_blinn_phong
+
+    require(native.available(), "no host C++ compiler")
+    mesh = config3_blinn_phong()[0].meshes[0]
+    # a shuffled walk order, far from the Morton order of a packed scene
+    order = np.random.default_rng(0).permutation(
+        mesh.num_triangles).astype(np.int32)
+    t0 = time.perf_counter()
+    fast = native.build_meshlets(mesh.indices, order, mesh.num_vertices)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slow = scene.greedy_meshlets(mesh.indices, order)
+    t_python = time.perf_counter() - t0
+    for name, a, b in zip(("vertex_src", "local_tri", "tri_perm"), fast, slow):
+        require(np.array_equal(a, b),
+                f"native meshlets differ from the Python builder's ({name})")
+    say(f"native meshlet builder: equal to the Python builder on config3 "
+        f"({mesh.num_triangles} tris, {len(fast[2]) // 128} meshlets; "
+        f"{t_native * 1e3:.1f} vs {t_python * 1e3:.1f} ms)")
 
 
 def golden(name: str) -> dict:
@@ -97,7 +139,7 @@ def flyby_camera(i: int, n: int):
     [0, 0, 2], r = 1) at impact parameter 1.02."""
     import numpy as np
 
-    from ash_renderer_tpu.camera import Camera
+    from ash_renderer_tpu_torch.camera import Camera
 
     z = -1.0 + 6.0 * i / max(n - 1, 1)
     return Camera(position=np.array([1.02, 0.0, z], np.float32))
@@ -156,14 +198,36 @@ def _max_err(pairs) -> int:
 
 # CUDA-event repetitions (kernel, plain) per kernel when compare_kernels
 # also times them; the plain K3 takes ~0.3 s a call at the headline
-TIMING_REPS = {"K1": (10, 3), "K2": (20, 20), "K3": (10, 1)}
+TIMING_REPS = {"K1": (10, 3), "K2": (20, 20), "K3": (10, 1), "K3F": (10, 1)}
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    """(the least ms for the work, "bytes" or "operations")."""
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = n_ops / SCALAR_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def k3_work(rmeta, vis_t, planes, stats):
+    """(bytes, ops) K3 needs at least for these inputs: the range meta, each
+    streamed table row's 7 record words once, each winner's 48 fields once,
+    vis_d, vis_t and planes written once; ops per slot-pixel evaluation."""
+    import torch
+
+    n_slots = int((rmeta[1::2] - rmeta[0::2]).sum())
+    n_rows = stats["live_rows"] + stats["wide_pairs_n"]
+    n_winners = int(torch.unique(vis_t[vis_t >= 0]).numel())
+    n_bytes = (rmeta.numel() * 4 + n_rows * 7 * 4 + n_winners * 48 * 4
+               + 2 * vis_t.numel() * 4 + planes.numel() * 4)
+    return n_bytes, n_slots * 1024 * K3_OPS_PER_SLOT_PX
 
 
 def compare_kernels(r, cam, label: str, errs: dict, timed: bool = False):
     """Each kernel against its plain version on the same card inputs, the
     ones the main path gives it for camera ``cam``.  Folds each kernel's
     max |kernel - plain| into ``errs``; returns the front's counters and,
-    with ``timed``, {kernel: (kernel ms, plain ms)} of the same calls."""
+    with ``timed``, {kernel: (kernel ms, plain ms, library ms or None,
+    (bound ms, bound by))} of the same calls."""
     import torch
 
     from ash_renderer_tpu_torch import pipeline
@@ -181,7 +245,9 @@ def compare_kernels(r, cam, label: str, errs: dict, timed: bool = False):
         tblT, s.ltT, s.matT, cfg, tail_rows=ntail), reps["K1"][0])
     p1, p1_ms = run_timed(lambda: setup_kernel.triangle_setup_plain(
         tblT, s.ltT, s.matT, cfg, ntail), reps["K1"][1])
-    ms["K1"] = (k1_ms, p1_ms)
+    k1_bytes = ((tblT.numel() + s.ltT.numel() + s.matT.numel()) * 4
+                + t * (128 + 4) * 4)  # comb rows, keys, flags, extx, exty
+    ms["K1"] = (k1_ms, p1_ms, None, bound_ms(k1_bytes, t * K1_OPS_PER_TRI))
     err1 = _max_err((a[:t], b[:t]) for a, b in zip(k1, p1))
     require(err1 == 0, f"K1 differs from its plain version ({label}): {err1}")
     del p1
@@ -196,7 +262,12 @@ def compare_kernels(r, cam, label: str, errs: dict, timed: bool = False):
                           reps["K2"][0])
     b2_p, p2_ms = run_timed(
         lambda: bincount.sorted_run_bounds_plain(keys_sorted, nb), reps["K2"][1])
-    ms["K2"] = (k2_ms, p2_ms)
+    bins = torch.arange(nb, dtype=torch.int32, device=keys_sorted.device)
+    _, lib2_ms = run_timed(lambda: torch.searchsorted(keys_sorted, bins),
+                           reps["K2"][1])
+    n_keys = keys_sorted.numel()
+    ms["K2"] = (k2_ms, p2_ms, lib2_ms,
+                bound_ms((n_keys + nb) * 4, n_keys * K2_OPS_PER_KEY))
     err2 = _max_err([(b2, b2_p)])
     require(err2 == 0, f"K2 differs from its plain version ({label}): {err2}")
 
@@ -208,7 +279,8 @@ def compare_kernels(r, cam, label: str, errs: dict, timed: bool = False):
     (vd_p, vt_p, pl_p), p3_ms = run_timed(
         lambda: fused_kernel.rasterize_distribute_plain(
             rmeta, tbl_sorted, tbl_ext, comb, cfg), reps["K3"][1])
-    ms["K3"] = (k3_ms, p3_ms)
+    ms["K3"] = (k3_ms, p3_ms, None,
+                bound_ms(*k3_work(rmeta, vt, pl, {k: int(v) for k, v in stats.items()})))
     # background pixels carry NaN attributes whose payload bits are the
     # device's: planes are compared under the validity mask, and the
     # material / id / pad rows everywhere
@@ -243,6 +315,59 @@ def compare_flyby(r, label: str, errs: dict) -> None:
             f"{label}: the frame neither clips nor expands wide pairs")
 
 
+def compare_k3f(r, cam, label: str, errs: dict, timed: bool = False):
+    """K3F (the raster kernel with phase F) against its plain version on
+    the inputs the phase F path gives it for camera ``cam``; folds the max
+    |kernel - plain| into ``errs``.  Returns the front's counters and, with
+    ``timed``, (kernel ms, plain ms, None, (bound ms, bound by))."""
+    import torch
+
+    from ash_renderer_tpu_torch import pipeline
+    from ash_renderer_tpu_torch.ops import fused_kernel as fk
+    from ash_renderer_tpu_torch.ops import shade
+
+    s, cfg = r.state, r.cfg
+    mm_t, mvp_t, _ = front_inputs(r, cam)
+    atlas = s.atlas if r.statics.has_atlas else None
+    light = s.light if r.statics.has_light else None
+    smode = pipeline.shade_mode_for(r.statics, s.materials, atlas, light)
+    require(smode is not None, f"{label}: the settings route to phase E")
+    cam_t = torch.from_numpy(cam.position.astype("float32")).to(r.device)
+    consts = shade.pack_shade_consts(smode, s.materials, atlas, light, cam_t)
+    rmeta, tbl_sorted, tbl_ext, comb, stats = pipeline.render_front(
+        r.statics, s, mm_t, mvp_t
+    )
+    reps = TIMING_REPS["K3F"] if timed else (0, 0)
+    (vd, vt, pl), k_ms = run_timed(lambda: fk.rasterize_distribute(
+        rmeta, tbl_sorted, tbl_ext, comb, cfg, smode, consts), reps[0])
+    (vd_p, vt_p, pl_p), p_ms = run_timed(
+        lambda: fk.rasterize_distribute_plain(
+            rmeta, tbl_sorted, tbl_ext, comb, cfg, smode, consts), reps[1])
+    # rows 0-12 under the validity mask (background pixels shade NaN
+    # attributes), the zero, id and pad rows everywhere
+    valid = (pl_p[:, fk.VIS_ROW, :] >= 0)[:, None, :]
+    err = _max_err([
+        (vd, vd_p), (vt, vt_p),
+        (torch.where(valid, pl, 0), torch.where(valid, pl_p, 0)),
+        (pl[:, fk.F_TEXMASK + 1:], pl_p[:, fk.F_TEXMASK + 1:]),
+    ])
+    require(err == 0, f"K3F differs from its plain version ({label}): {err} "
+            f"({int((vt != vt_p).sum())} winner ids differ)")
+    errs["K3F"] = max(errs.get("K3F", 0), err)
+    stats = {k: int(v) for k, v in stats.items()}
+    v2 = valid[:, 0, :]
+    say(f"{label}: K3F bit-equal to plain (shade mode {smode}); covered px "
+        f"{int(v2.sum())}, lit {int((pl[:, fk.F_LIT][v2] != 0).sum())}, "
+        f"textured {int((pl[:, fk.F_TEXMASK][v2] != 0).sum())}, clipped "
+        f"{stats['n_clipped']}, wide pairs {stats['wide_pairs_n']}")
+    if not timed:
+        return stats, None
+    n_bytes, n_ops = k3_work(rmeta, vt, pl, stats)
+    n_ops += int(v2.sum()) * K3F_OPS_PER_PX
+    return stats, (k_ms, p_ms, None,
+                   bound_ms(n_bytes + consts.numel() * 4, n_ops))
+
+
 def stage_ms(r, cam) -> dict:
     """Per-stage CUDA-event times of one frame through ``r.render_frame``
     (the events go where the pipeline reports each stage issued)."""
@@ -263,6 +388,24 @@ def stage_ms(r, cam) -> dict:
         name: ev[i - 1][1].elapsed_time(e)
         for i, (name, e) in enumerate(ev) if i > 0
     }
+
+
+def frames_ms(r, cams):
+    """Per-frame device-clock times (CUDA events between frame starts) over
+    the camera list, after two warm-up frames: (median, mean, max)."""
+    import torch
+
+    for c in cams[:2]:
+        r.render_frame(c)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(cams) + 1)]
+    ev[0].record()
+    for c, e in zip(cams, ev[1:]):
+        r.render_frame(c)
+        e.record()
+    torch.cuda.synchronize()
+    per = sorted(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+    return per[len(per) // 2], sum(per) / len(per), per[-1]
 
 
 def main() -> int:
@@ -291,15 +434,24 @@ def main() -> int:
 
     with Phase("2 build"):
         t0 = time.perf_counter()
-        path = _build.build()
-        _build.lib()
-        say(f"kernels: {os.path.relpath(path, ROOT)} "
-            f"({time.perf_counter() - t0:.1f} s)")
+        paths, logs = _build.build(tuple(_build.KERNELS) + _build.HOST_SOURCES,
+                                   ptxas_report=True)
+        for src in paths:
+            _build.load(src)
+        say(f"built {len(logs)} of {len(paths)} libraries in "
+            f"{time.perf_counter() - t0:.1f} s: "
+            + ", ".join(os.path.relpath(p, ROOT) for p in paths.values()))
+        for src, log in logs.items():
+            for line in log.splitlines():
+                if "Used" in line or "spill" in line or "Compiling" in line:
+                    say(f"  ptxas {src}: {line.strip()}")
+        check_native_meshlets()
 
     import dataclasses
 
-    from ash_renderer_tpu.camera import orbit_path
-    from ash_renderer_tpu_torch.benchmarks import config4_million_tri
+    from ash_renderer_tpu_torch.benchmarks import (config3_blinn_phong,
+                                                   config4_million_tri)
+    from ash_renderer_tpu_torch.camera import orbit_path
     from ash_renderer_tpu_torch.renderer import Renderer
 
     errs: dict = {}
@@ -311,7 +463,6 @@ def main() -> int:
         torch.cuda.synchronize()
 
     with Phase("4 frames through Renderer"):
-        ensure_native_meshlets()
         t0 = time.perf_counter()
         scene8, st8, cams8 = config4_million_tri(8)
         r8 = Renderer(scene8, st8, device=dev)
@@ -348,21 +499,6 @@ def main() -> int:
             require(counts.get(k, 0) > 0, f"{k} was not launched in phase 4")
 
     with Phase("6 timings (subdiv 8)"):
-        def frames_ms(r, cams):
-            """Per-frame device-clock times (CUDA events between frame
-            starts) over the camera list, after two warm-up frames."""
-            for c in cams[:2]:
-                r.render_frame(c)
-            torch.cuda.synchronize()
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(cams) + 1)]
-            ev[0].record()
-            for c, e in zip(cams, ev[1:]):
-                r.render_frame(c)
-                e.record()
-            torch.cuda.synchronize()
-            per = sorted(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
-            return per[len(per) // 2], sum(per) / len(per), per[-1]
-
         static = [cams8[0]] * N_FRAMES
         r8u = Renderer(scene8, dataclasses.replace(st8, front_coherence=False),
                        device=dev)
@@ -389,24 +525,103 @@ def main() -> int:
         _, timing = compare_kernels(r8, cams8[0], "static subdiv 8", errs,
                                     timed=True)
         compare_flyby(r8, "fly-by subdiv 8", errs)
-        for k, (kt, pt) in timing.items():
-            say(f"[{card}] {k}: kernel {kt:.3f} ms, plain torch {pt:.3f} ms")
+
+    on = dataclasses.replace(st8, fused_surface_shade="on")
+    with Phase("8 K3F vs plain (config3; config4 subdiv 8 \"on\")"):
+        scene3, st3, cams3 = config3_blinn_phong()
+        r3 = Renderer(scene3, st3, device=dev)
+        orbit3 = orbit_path(8, radius=3.0, center=[0.0, 0.0, 3.0])
+        compare_k3f(r3, cams3[0], "config3 static", errs)
+        compare_k3f(r3, orbit3[3], "config3 orbit frame 3", errs)
+        r8on = Renderer(scene8, on, device=dev)
+        _, timing["K3F"] = compare_k3f(r8on, cams8[0],
+                                       "config4 subdiv 8 on, static", errs,
+                                       timed=True)
+        stats = compare_k3f(r8on, flyby_camera(FLYBY_FRAME, N_FRAMES),
+                            "config4 subdiv 8 on, fly-by", errs)[0]
+        require(stats["n_clipped"] > 0 and stats["wide_pairs_n"] > 0,
+                "K3F fly-by frame neither clips nor expands wide pairs")
+        for k, (kt, pt, lt, (bt, by)) in timing.items():
+            say(f"[{card}] {k}: kernel {kt:.4f} ms, plain torch {pt:.4f} ms, "
+                f"library {'none' if lt is None else f'{lt:.4f} ms'}, "
+                f"bound {bt:.4f} ms ({by})")
+        torch.cuda.synchronize()
+
+    with Phase("9 the phase F path through Renderer"):
+        r3off = Renderer(scene3, dataclasses.replace(
+            st3, fused_surface_shade="off"), device=dev)
+        r5on = Renderer(scene5, dataclasses.replace(
+            st5, fused_surface_shade="on"), device=dev)
+        _build.launches.clear()
+        a3 = r3.read_frame(r3.render_frame(cams3[0])[0])
+        o3 = r3off.read_frame(r3off.render_frame(cams3[0])[0])
+        require(int((a3 != o3).sum()) == 0,
+                "config3: the auto (phase F) frame differs from the off frame")
+        require(int(a3[..., :3].max()) > 0, "config3: the frame is black")
+        say(f"config3 {a3.shape[1]}x{a3.shape[0]}: auto (K3F) frame byte-equal "
+            "to off (K3)")
+        f5on = r5on.read_frame(r5on.render_frame(cams5[0])[0])
+        require(sha(f5on) == g5["sha256"], "subdiv-5 on: frame != golden")
+        say("subdiv-5 frame, on: golden sha256 EXACT")
+        f8on = r8on.read_frame(r8on.render_frame(cams8[0])[0])
+        require(sha(f8on) == g8["sha256"], "subdiv-8 on: frame != golden")
+        say("subdiv-8 frame, on: golden sha256 EXACT")
+        fm = r8on.read_frame(r8on.render_frame(moved)[0])
+        fs = r8on.read_frame(r8on.render_frame(cams8[0])[0])
+        require(not (fm == f8on).all(), "on: the moved frame equals the static one")
+        require((fs == f8on).all(), "on: static -> moved -> static differs")
+        say("on: static -> moved -> static: final frame byte-equal to the first")
+        torch.cuda.synchronize()
+        counts_f = dict(_build.launches)
+        say(json.dumps(counts_f, sort_keys=True))
+        for k in ("K1_setup", "K2_run_bounds", "K3F_raster_shade"):
+            require(counts_f.get(k, 0) > 0, f"{k} was not launched in phase 9")
+        del r5on, r3off
+
+    with Phase("10 phase F timings"):
+        def turns(label, legs, cams):
+            """Frame medians of each leg in turns (a, b, b, a)."""
+            med = {name: [] for name, _ in legs}
+            for name, r in legs + legs[::-1]:
+                med[name].append(frames_ms(r, cams)[0])
+            say(f"[{card}] frame ms, {label}, median per leg in turns: " + "; ".join(
+                f"{name} {', '.join(f'{m:.3f}' for m in ms)}" for name, ms in med.items()))
+
+        nocache = dict(front_coherence=False)
+        r3u = Renderer(scene3, dataclasses.replace(st3, **nocache), device=dev)
+        r3u_off = Renderer(scene3, dataclasses.replace(
+            st3, fused_surface_shade="off", **nocache), device=dev)
+        turns("config3 static uncached", [("auto", r3u), ("off", r3u_off)],
+              [cams3[0]] * N_FRAMES)
+        del r3u, r3u_off, r8on
+        r8u = Renderer(scene8, dataclasses.replace(st8, **nocache), device=dev)
+        r8u_on = Renderer(scene8, dataclasses.replace(on, **nocache), device=dev)
+        turns("config4 subdiv 8 static uncached", [("auto", r8u), ("on", r8u_on)],
+              [cams8[0]] * N_FRAMES)
+        stage_ms(r8u_on, cams8[0])  # warm-up
+        say(f"[{card}] stage ms (subdiv 8 on, static, uncached): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stage_ms(r8u_on, cams8[0]).items()))
+        del r8u, r8u_on
         say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     meta = {
         "K1": ("K1_setup", "ash_renderer_tpu_torch/csrc/setup.cu",
-               "ash_renderer_tpu/ops/setup_kernel.py:351"),
+               "ash_renderer_tpu/ops/setup_kernel.py:351", counts),
         "K2": ("K2_run_bounds", "ash_renderer_tpu_torch/csrc/bincount.cu",
-               "ash_renderer_tpu/ops/bincount.py:129"),
+               "ash_renderer_tpu/ops/bincount.py:129", counts),
         "K3": ("K3_raster", "ash_renderer_tpu_torch/csrc/raster.cu",
-               "ash_renderer_tpu/ops/fused_kernel.py:1087"),
+               "ash_renderer_tpu/ops/fused_kernel.py:1087", counts),
+        "K3F": ("K3F_raster_shade", "ash_renderer_tpu_torch/csrc/raster.cu",
+                "ash_renderer_tpu/ops/fused_kernel.py:128", counts_f),
     }
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": errs[k],
-         "ms": round(timing[k][0], 4), "plain_ms": round(timing[k][1], 4)}
-        for k, (name, src, rep) in meta.items()
-    ]
+    kernels = []
+    for k, (name, src, rep, n) in meta.items():
+        kt, pt, lt, (bt, by) = timing[k]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": n[name], "max_abs_err": errs[k], "ms": kt,
+            "plain_ms": pt, "bound_ms": bt, "bound_by": by, "library_ms": lt,
+        })
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,9 +35,9 @@ def main():
 
     import dataclasses
 
-    from ash_renderer_tpu.camera import orbit_path
     from ash_renderer_tpu_torch import pipeline
     from ash_renderer_tpu_torch.benchmarks import config4_million_tri
+    from ash_renderer_tpu_torch.camera import orbit_path
     from ash_renderer_tpu_torch.ops import fused_kernel
     from ash_renderer_tpu_torch.renderer import Renderer, compose_mvp
 

@@ -17,7 +17,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_parity as tp  # noqa: E402
 
-from ash_renderer_tpu import Camera, RendererSettings  # noqa: E402
+from ash_renderer_tpu_torch.camera import Camera  # noqa: E402
+from ash_renderer_tpu_torch.config import RendererSettings  # noqa: E402
 from ash_renderer_tpu_torch.renderer import Renderer  # noqa: E402
 
 torch.set_num_threads(1)
@@ -25,27 +26,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _oracle(case, cam=None):
+    """The numpy oracle's frame of the case's JAX-package scene."""
     from ash_renderer_tpu.oracle import render_oracle
-    from ash_renderer_tpu.rtypes import LightPack, MaterialsPack
 
-    sc = case.scene
-    cam = cam or case.cam
-    w, h = case.settings.render_width, case.settings.render_height
-    mats = MaterialsPack(
-        base_color=np.array([m.base_color for m in sc.materials], np.float32),
-        tex_id=np.array([m.texture_id for m in sc.materials], np.int32),
-        specular=np.array([m.specular for m in sc.materials], np.float32),
-        shininess=np.array([m.shininess for m in sc.materials], np.int32),
-    )
-    light = None if sc.light is None else LightPack(
-        direction=np.asarray(sc.light.direction, np.float32),
-        color=np.asarray(sc.light.color, np.float32),
-        ambient=np.float32(sc.light.ambient),
-    )
+    cam = cam or case.ref_cam
+    st = case.ref_settings
+    mats, atlas, light = tp.jax_shading(case)
     return render_oracle(
-        case.packed, case.mm, cam.view_matrix(), cam.projection_matrix(w / h),
-        case.settings, materials=mats, atlas=sc.atlas, light=light,
-        camera_pos=cam.position.astype(np.float32), cfg=case.cfg,
+        case.ref_packed, case.mm, cam.view_matrix(),
+        cam.projection_matrix(st.render_width / st.render_height), st,
+        materials=mats, atlas=atlas, light=light,
+        camera_pos=cam.position.astype(np.float32), cfg=case.ref_cfg,
     )
 
 
@@ -169,15 +160,17 @@ def test_write_png_roundtrip(tmp_path):
 
 
 def test_port_never_imports_jax():
-    """In a fresh interpreter where importing jax raises, every module of
-    the port imports and a tiny scene renders on the CPU."""
+    """In a fresh interpreter where importing jax or the JAX package
+    raises, every module of the port imports and a tiny scene renders on
+    the CPU."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
 
         class NoJax:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
-                    raise ImportError("jax is blocked in this process")
+                if name.split(".")[0] in ("jax", "jaxlib",
+                                          "ash_renderer_tpu"):
+                    raise ImportError(f"{name} is blocked in this process")
                 return None
 
         sys.meta_path.insert(0, NoJax())
@@ -186,15 +179,16 @@ def test_port_never_imports_jax():
         import ash_renderer_tpu_torch as pkg
         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(m.name)
-        from ash_renderer_tpu import Camera, RendererSettings
         from ash_renderer_tpu_torch.benchmarks import config4_million_tri
+        from ash_renderer_tpu_torch.config import RendererSettings
         from ash_renderer_tpu_torch.renderer import Renderer
         scene, _, cams = config4_million_tri(1)
-        r = Renderer(scene, RendererSettings(width=64, height=48),
+        r = Renderer(scene, RendererSettings(width=64, height=64),
                      device="cpu")
         frame = r.read_frame(r.render_frame(cams[0])[0])
-        assert frame.shape == (48, 64, 4) and int(frame[..., 0].max()) > 0
-        assert not [m for m in sys.modules if m.split(".")[0] == "jax"]
+        assert frame.shape == (64, 64, 4) and int(frame[..., 0].max()) > 0
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "ash_renderer_tpu")]
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=ROOT)

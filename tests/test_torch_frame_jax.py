@@ -19,29 +19,12 @@ torch.set_num_threads(1)
 
 def test_frame_matches_jax_fused_frame():
     from ash_renderer_tpu.pipeline import render_frame_fused_jit
-    from ash_renderer_tpu.rtypes import LightPack, MaterialsPack
-    from ash_renderer_tpu.textures import TextureAtlas
 
     case = tp.make_case("textured")
-    sc, p = case.scene, case.packed
-    r = Renderer(sc, case.settings, device="cpu")
+    p = case.ref_packed
+    r = Renderer(case.scene, case.settings, device="cpu")
     got, aux = r.render_frame(case.cam)
-
-    a = sc.atlas
-    atlas = TextureAtlas(texels=a.texels, quads=a.quads,
-                         level_offset=a.level_offset, level_w=a.level_w,
-                         level_h=a.level_h, n_levels=a.n_levels)
-    mats = MaterialsPack(
-        base_color=np.array([m.base_color for m in sc.materials], np.float32),
-        tex_id=np.array([m.texture_id for m in sc.materials], np.int32),
-        specular=np.array([m.specular for m in sc.materials], np.float32),
-        shininess=np.array([m.shininess for m in sc.materials], np.int32),
-    )
-    light = LightPack(
-        direction=np.asarray(sc.light.direction, np.float32),
-        color=np.asarray(sc.light.color, np.float32),
-        ambient=np.float32(sc.light.ambient),
-    )
+    mats, atlas, light = tp.jax_shading(case)
     want, jaux = render_frame_fused_jit(
         tp.jax_statics(case),
         jnp.asarray(p.positions), jnp.asarray(p.vert_obj),

@@ -46,7 +46,7 @@ def test_raster_matches_reference_kernel(name):
 
     want_d, want_t, want_p = (np.asarray(a) for a in jfk.rasterize_distribute(
         jax_rmeta(rmeta), padded(tbl_sorted), padded(tbl_ext),
-        case.cfg, interpret=True,
+        case.ref_cfg, interpret=True,
     ))
     vis_d, vis_t, planes = fused_kernel.rasterize_distribute(
         rmeta, tbl_sorted, tbl_ext, comb, case.cfg
@@ -115,7 +115,7 @@ def test_fine_rows_only_touch_their_window():
         jax_rmeta(rmeta),
         jnp.asarray(np.concatenate([tbl_sorted.numpy(), pad])),
         jnp.asarray(np.concatenate([tbl_ext.numpy(), pad])),
-        case.cfg, interpret=True,
+        case.ref_cfg, interpret=True,
     )
     got = fused_kernel.rasterize_distribute(
         rmeta, tbl_sorted, tbl_ext, comb, case.cfg

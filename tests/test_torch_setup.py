@@ -60,12 +60,12 @@ def test_state_matches_jax_renderer_buffers():
 
     from ash_renderer_tpu.renderer import Renderer as JaxRenderer
 
-    from ash_renderer_tpu.textures import TextureAtlas, checkerboard
+    from ash_renderer_tpu.textures import TextureAtlas
 
     case = tp.make_case("textured")
-    case.scene.atlas = TextureAtlas.build([checkerboard(64)])  # JAX pytree
-    settings = dataclasses.replace(case.settings, pipeline="fused")
-    jr = JaxRenderer(case.scene, settings, interpret=True)
+    assert isinstance(case.ref_scene.atlas, TextureAtlas)  # JAX pytree
+    settings = dataclasses.replace(case.ref_settings, pipeline="fused")
+    jr = JaxRenderer(case.ref_scene, settings, interpret=True)
     st = tp.port_state(case)
     for k in ("positions", "vert_obj", "normals", "colors", "uvs", "tri_v",
               "tri_mat", "ltT", "matT"):

@@ -1,6 +1,11 @@
 """Shared inputs for the PyTorch port's parity tests (tests/test_torch_*.py):
 small seeded scenes, and the JAX reference's front stages run on them
-(Pallas kernels in interpret mode), returned as numpy arrays."""
+(Pallas kernels in interpret mode), returned as numpy arrays.
+
+Each case is built once with the JAX package and carried across into the
+port's own types (``scene_from_reference`` and friends): ``Case.scene``,
+``settings``, ``cam``, ``packed`` and ``cfg`` are the port's, ``ref_*`` the
+JAX package's, and the matrices are numpy arrays both take."""
 
 import dataclasses
 
@@ -39,7 +44,7 @@ def rand_scene(seed, nv, nt, spread, zoff=3.0):
 def graze_scene():
     """A unit icosphere just in front of the camera: live clip fans, wide
     keys with pair expansion, and fine runs in one frame."""
-    from ash_renderer_tpu_torch.models import icosphere
+    from ash_renderer_tpu.models import icosphere
 
     sc = Scene()
     sc.add_object(SceneObject(mesh=sc.add_mesh(icosphere(2)),
@@ -50,8 +55,8 @@ def graze_scene():
 def textured_scene():
     """Textured, lit, specular icosphere (the headline's shading chain)."""
     from ash_renderer_tpu import DirectionalLight, Material
-    from ash_renderer_tpu_torch.models import icosphere
-    from ash_renderer_tpu_torch.textures import TextureAtlas, checkerboard
+    from ash_renderer_tpu.models import icosphere
+    from ash_renderer_tpu.textures import TextureAtlas, checkerboard
 
     sc = Scene(
         materials=[Material(texture_id=0, specular=0.4, shininess=32)],
@@ -59,6 +64,62 @@ def textured_scene():
     )
     sc.atlas = TextureAtlas.build([checkerboard(64)])
     sc.add_object(SceneObject(mesh=sc.add_mesh(icosphere(2)),
+                              model=mathx.translation([0, 0, 3])))
+    return sc
+
+
+def config3_scene():
+    """config3_blinn_phong's scene (ash_renderer_tpu/benchmarks.py): an
+    untextured, lit, specular icosphere of 5,120 triangles."""
+    from ash_renderer_tpu.benchmarks import config3_blinn_phong
+
+    return config3_blinn_phong()[0]
+
+
+def two_texture_scene(uv_scale=2.0):
+    """Two textured materials on two instances of one random lit mesh (the
+    T=2 phase F case of tests/test_fused.py), uvs in [0, uv_scale)."""
+    from ash_renderer_tpu import DirectionalLight, Material
+    from ash_renderer_tpu.textures import TextureAtlas, checkerboard
+
+    rng = np.random.default_rng(17)
+    nv, nt = 90, 70
+    pos = rng.uniform(-1.5, 1.5, (nv, 3)).astype(F32)
+    pos[:, 2] += 3.0
+    mesh = Mesh(
+        positions=pos,
+        indices=rng.integers(0, nv, (nt, 3)).astype(np.int32),
+        colors=rng.uniform(0.2, 1, (nv, 4)).astype(F32),
+        uvs=rng.uniform(0, uv_scale, (nv, 2)).astype(F32),
+    ).compute_normals()
+    sc = Scene(
+        materials=[Material(texture_id=0, specular=0.5, shininess=32),
+                   Material(texture_id=1, specular=0.2, shininess=8)],
+        light=DirectionalLight(direction=(0.4, -0.6, 0.7), ambient=0.2),
+    )
+    sc.add_object(SceneObject(mesh=sc.add_mesh(mesh), material=0))
+    sc.add_object(SceneObject(mesh=0, material=1,
+                              model=mathx.rotation_y(0.3)))
+    sc.atlas = TextureAtlas.build([checkerboard(64), checkerboard(32)])
+    return sc
+
+
+def huge_uv_scene():
+    """A textured, lit icosphere whose uvs are the constants (3e9, -5e9):
+    u * w and v * h are past 2**31 at every mip level, so the float ->
+    int32 tap casts saturate."""
+    from ash_renderer_tpu import DirectionalLight, Material
+    from ash_renderer_tpu.models import icosphere
+    from ash_renderer_tpu.textures import TextureAtlas, checkerboard
+
+    mesh = icosphere(2)
+    mesh.uvs = np.tile(np.array([[3e9, -5e9]], F32), (mesh.num_vertices, 1))
+    sc = Scene(
+        materials=[Material(texture_id=0, specular=0.4, shininess=32)],
+        light=DirectionalLight(direction=(0.3, -0.6, 0.74), ambient=0.15),
+    )
+    sc.atlas = TextureAtlas.build([checkerboard(512)])
+    sc.add_object(SceneObject(mesh=sc.add_mesh(mesh),
                               model=mathx.translation([0, 0, 3])))
     return sc
 
@@ -82,12 +143,23 @@ SCENES = {
     "ssaa_srgb": (textured_scene, RendererSettings(
         width=96, height=64, supersample=2, srgb_output=True,
         clip_budget=128)),
+    # phase F cases: "auto" sends the untextured config3 scene to phase F,
+    # "on" the textured ones
+    "config3": (config3_scene, RendererSettings(
+        width=192, height=128, clip_budget=128)),
+    "textured_on": (textured_scene, RendererSettings(
+        width=192, height=128, clip_budget=128, fused_surface_shade="on")),
+    "two_textures_on": (two_texture_scene, RendererSettings(
+        width=96, height=64, supersample=2, clip_budget=64,
+        fused_surface_shade="on")),
+    "huge_uv_on": (huge_uv_scene, RendererSettings(
+        width=128, height=96, clip_budget=64, fused_surface_shade="on")),
 }
 
 
 @dataclasses.dataclass
 class Case:
-    scene: object
+    scene: object  # the port's, carried across from ref_scene
     settings: object
     packed: object
     cfg: object
@@ -96,6 +168,11 @@ class Case:
     mvp: np.ndarray
     view: np.ndarray
     proj: np.ndarray
+    ref_scene: object  # the JAX package's
+    ref_settings: object
+    ref_packed: object
+    ref_cfg: object
+    ref_cam: object
 
 
 def make_case(name, cam=None):
@@ -103,16 +180,39 @@ def make_case(name, cam=None):
     return case_from(build(), settings, cam)
 
 
+def port_settings(settings):
+    """The port's RendererSettings with the same fields as ``settings``."""
+    from ash_renderer_tpu_torch.config import RendererSettings as PortSettings
+
+    return PortSettings(**dataclasses.asdict(settings))
+
+
+def port_camera(cam):
+    from ash_renderer_tpu_torch.camera import Camera as PortCamera
+
+    return PortCamera(**{f.name: getattr(cam, f.name)
+                         for f in dataclasses.fields(cam)})
+
+
 def case_from(scene, settings, cam=None):
+    """A case from a JAX-package scene, settings and camera, carried across
+    into the port's types."""
+    from ash_renderer_tpu_torch.config import derive_raster_config as port_cfg
+    from ash_renderer_tpu_torch.scene import scene_from_reference
+
     cam = cam or Camera()
     w, h = settings.render_width, settings.render_height
     view = cam.view_matrix()
     proj = cam.projection_matrix(w / h)
     mm = scene.model_matrices()
+    pscene = scene_from_reference(scene)
     return Case(
-        scene=scene, settings=settings, packed=scene.pack(meshlets=True),
-        cfg=derive_raster_config(w, h, tile_h=8), cam=cam, mm=mm,
-        mvp=compose_mvp(mm, view, proj), view=view, proj=proj,
+        scene=pscene, settings=port_settings(settings),
+        packed=pscene.pack(meshlets=True), cfg=port_cfg(w, h, tile_h=8),
+        cam=port_camera(cam), mm=mm, mvp=compose_mvp(mm, view, proj),
+        view=view, proj=proj, ref_scene=scene, ref_settings=settings,
+        ref_packed=scene.pack(meshlets=True),
+        ref_cfg=derive_raster_config(w, h, tile_h=8), ref_cam=cam,
     )
 
 
@@ -120,10 +220,35 @@ def jax_statics(case):
     from ash_renderer_tpu.pipeline import FrameStatics
 
     return FrameStatics(
-        cfg=case.cfg, settings=case.settings, has_materials=True,
-        has_atlas=case.scene.atlas is not None,
-        has_light=case.scene.light is not None, interpret=True,
+        cfg=case.ref_cfg, settings=case.ref_settings, has_materials=True,
+        has_atlas=case.ref_scene.atlas is not None,
+        has_light=case.ref_scene.light is not None, interpret=True,
     )
+
+
+def jax_shading(case):
+    """The JAX package's (materials, atlas, light) packs of the case, as
+    its Renderer builds them (numpy fields)."""
+    from ash_renderer_tpu.rtypes import LightPack, MaterialsPack
+    from ash_renderer_tpu.textures import TextureAtlas
+
+    sc = case.ref_scene
+    mats = MaterialsPack(
+        base_color=np.array([m.base_color for m in sc.materials], np.float32),
+        tex_id=np.array([m.texture_id for m in sc.materials], np.int32),
+        specular=np.array([m.specular for m in sc.materials], np.float32),
+        shininess=np.array([m.shininess for m in sc.materials], np.int32),
+    )
+    atlas = None if sc.atlas is None else TextureAtlas(**{
+        f.name: np.asarray(getattr(sc.atlas, f.name))
+        for f in dataclasses.fields(TextureAtlas)
+    })
+    light = None if sc.light is None else LightPack(
+        direction=np.asarray(sc.light.direction, np.float32),
+        color=np.asarray(sc.light.color, np.float32),
+        ambient=np.float32(sc.light.ambient),
+    )
+    return mats, atlas, light
 
 
 def jax_front(case, setup_only=False):
@@ -132,7 +257,7 @@ def jax_front(case, setup_only=False):
     from ash_renderer_tpu import pipeline
     from ash_renderer_tpu.ops import geometry, setup_kernel
 
-    p = case.packed
+    p = case.ref_packed
     statics = jax_statics(case)
     tri_mat = p.obj_material[np.clip(p.tri_obj, 0, len(p.obj_material) - 1)]
     ltT, matT = setup_kernel.prep_static(p.local_tri, tri_mat, p.tri_v[:, 0] >= 0)
@@ -143,8 +268,8 @@ def jax_front(case, setup_only=False):
     )
     ntail = case.settings.clip_budget * geometry.MAX_CLIP_TRIS
     comb, keys_main, flags, extx, exty = setup_kernel.triangle_setup(
-        tblT, jnp.asarray(ltT), jnp.asarray(matT), case.cfg, interpret=True,
-        tail_rows=ntail,
+        tblT, jnp.asarray(ltT), jnp.asarray(matT), case.ref_cfg,
+        interpret=True, tail_rows=ntail,
     )
     out = dict(tblT=tblT, comb_main=comb, keys_main=keys_main, flags=flags,
                extx=extx, exty=exty)
@@ -188,3 +313,60 @@ def port_statics(case):
         has_atlas=case.scene.atlas is not None,
         has_light=case.scene.light is not None,
     )
+
+
+def shade_inputs(case):
+    """(port shade mode, port consts, JAX shade kwargs) for the case; the
+    two packages' shade_mode_for must agree."""
+    from ash_renderer_tpu.pipeline import shade_mode_for as ref_mode_for
+    from ash_renderer_tpu_torch import pipeline
+    from ash_renderer_tpu_torch.ops import shade
+
+    st = port_state(case)
+    statics = port_statics(case)
+    atlas = st.atlas if statics.has_atlas else None
+    light = st.light if statics.has_light else None
+    smode = pipeline.shade_mode_for(statics, st.materials, atlas, light)
+    mats, ratlas, rlight = jax_shading(case)
+    want_mode = ref_mode_for(jax_statics(case), mats, ratlas, rlight)
+    assert smode == want_mode
+    cam_pos = case.cam.position.astype(np.float32)
+    consts = shade.pack_shade_consts(smode, st.materials, atlas, light,
+                                     torch.from_numpy(cam_pos))
+    ref_kw = dict(shade_mode=want_mode, materials=mats, atlas=ratlas,
+                  light=rlight, camera_pos=jnp.asarray(cam_pos))
+    return smode, consts, ref_kw
+
+
+def _flush(bits):
+    """int32 float bits with each subnormal (exponent bits 0, mantissa not
+    0) mapped to the zero of its sign; every other value, -0 and +0
+    included, keeps its bits."""
+    sub = ((bits & 0x7F800000) == 0) & ((bits & 0x007FFFFF) != 0)
+    return np.where(sub, bits & np.int32(-2 ** 31), bits)
+
+
+def compare_f_planes(got, want):
+    """Raster outputs with phase F planes against the reference kernel's:
+    visibility exactly; rows 0-12 under the validity mask, float rows after
+    mapping subnormals to the zero of their sign (XLA on the CPU flushes
+    subnormal results such as powi(...) * specular to zero, torch and the
+    CUDA kernels keep them, as the numpy oracle does); the zero, id and pad
+    rows everywhere.  Returns (planes, valid)."""
+    from ash_renderer_tpu_torch.ops import fused_kernel as fk
+
+    float_rows = list(range(fk.F_P, fk.F_SPEC + 1)) + [fk.F_FU, fk.F_FV]
+    vis_d, vis_t, planes = (np.asarray(x) for x in got)
+    want_d, want_t, want_p = (np.asarray(x) for x in want)
+    np.testing.assert_array_equal(vis_t, want_t)
+    np.testing.assert_array_equal(vis_d, want_d)
+    assert planes.shape == want_p.shape
+    valid = want_p[:, fk.VIS_ROW, :] >= 0
+    for row in range(fk.F_TEXMASK + 1):
+        a, b = planes[:, row][valid], want_p[:, row][valid]
+        if row in float_rows:
+            a, b = _flush(a), _flush(b)
+        np.testing.assert_array_equal(a, b, err_msg=str(row))
+    np.testing.assert_array_equal(planes[:, fk.F_TEXMASK + 1:],
+                                  want_p[:, fk.F_TEXMASK + 1:])
+    return planes, valid
