@@ -72,6 +72,15 @@ KERNELS = {
         # has_l, stream
         "ash_rasterize_shade": [_P] * 7 + [_I] * 4 + [_P] + [_I] * 6 + [_P],
     },
+    "raster_classic.cu": {
+        # rec_i, rec_f, tile_start, tile_count, vis_d, vis_t, n_rec,
+        # n_tiles, grid_w, ss, stream
+        "ash_rasterize_visibility": [_P] * 6 + [_I] * 4 + [_P],
+    },
+    "gather.cu": {
+        # tbl, local_tri, out, n_tris, n_cols, stream
+        "ash_gather_tri_rows": [_P] * 3 + [_I] * 2 + [_P],
+    },
 }
 _ENTRY_SOURCE = {e: s for s, entries in KERNELS.items() for e in entries}
 _LIBS: dict = {}

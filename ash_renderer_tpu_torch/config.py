@@ -58,7 +58,7 @@ class RendererSettings:
     fused_front_merge: bool = True
     # Pipeline implementation: "fused" = setup kernel + sort-binned
     # raster/distribute kernel; "classic" = the pair-record pipeline;
-    # "auto" = the Renderer's rule (the port has only "fused" so far).
+    # "auto" = the Renderer's rule (fused from 4096 triangles, else classic).
     pipeline: str = "auto"
     # In-kernel surface shading (phase F: material modulation, mip select,
     # tap addressing, Blinn-Phong inside the raster kernel).  "auto" = in
@@ -104,9 +104,9 @@ class RasterConfig:
     guard_px: int
     tile_h: int
     tile_w: int
-    # Triangles processed per block in the classic visibility kernel.
+    # JAX package only: records per DMA block of its classic visibility
+    # kernel (the port's K4 stages its own chunks) and the loop unroll.
     tri_block: int = 128
-    # Inner-loop unroll factor for the per-triangle loop.
     tri_unroll: int = 1
 
     @property

@@ -1,3 +1,3 @@
 """Procedural meshes used by the port's configurations."""
 
-from .procedural import icosphere  # noqa: F401
+from .procedural import cube, icosphere, uv_sphere  # noqa: F401

@@ -11,6 +11,61 @@ F32 = np.float32
 I32 = np.int32
 
 
+def cube(size: float = 1.0) -> Mesh:
+    """Cube of 12 triangles, outward CCW-front winding, per-face normals and
+    uvs."""
+    s = size / 2.0
+    faces = [
+        ([s, -s, -s], [s, s, -s], [s, s, s], [s, -s, s], [1, 0, 0]),
+        ([-s, -s, s], [-s, s, s], [-s, s, -s], [-s, -s, -s], [-1, 0, 0]),
+        ([-s, s, -s], [-s, s, s], [s, s, s], [s, s, -s], [0, 1, 0]),
+        ([-s, -s, s], [-s, -s, -s], [s, -s, -s], [s, -s, s], [0, -1, 0]),
+        ([s, -s, s], [s, s, s], [-s, s, s], [-s, -s, s], [0, 0, 1]),
+        ([-s, -s, -s], [-s, s, -s], [s, s, -s], [s, -s, -s], [0, 0, -1]),
+    ]
+    pos, nrm, uv, idx = [], [], [], []
+    for f, (a, b, c, d, n) in enumerate(faces):
+        base = 4 * f
+        pos += [a, b, c, d]
+        nrm += [n] * 4
+        uv += [[0, 0], [0, 1], [1, 1], [1, 0]]
+        idx += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
+    return Mesh(
+        positions=np.array(pos, F32),
+        indices=np.array(idx, I32),
+        normals=np.array(nrm, F32),
+        uvs=np.array(uv, F32),
+    )
+
+
+def uv_sphere(n_lat: int = 32, n_lon: int = 64, radius: float = 1.0) -> Mesh:
+    """Latitude/longitude sphere with smooth normals and spherical uvs."""
+    lat = np.linspace(0, np.pi, n_lat + 1)
+    lon = np.linspace(0, 2 * np.pi, n_lon + 1)
+    th, ph = np.meshgrid(lat, lon, indexing="ij")
+    x = radius * np.sin(th) * np.cos(ph)
+    y = radius * np.cos(th)
+    z = radius * np.sin(th) * np.sin(ph)
+    pos = np.stack([x, y, z], axis=-1).reshape(-1, 3).astype(F32)
+    nrm = (pos / radius).astype(F32)
+    u = (ph / (2 * np.pi)).reshape(-1)
+    v = (th / np.pi).reshape(-1)
+    uv = np.stack([u, v], axis=-1).astype(F32)
+    idx = []
+    stride = n_lon + 1
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a = i * stride + j
+            b = a + 1
+            c = a + stride
+            d = c + 1
+            if i > 0:
+                idx.append([a, c, b])
+            if i < n_lat - 1:
+                idx.append([b, c, d])
+    return Mesh(positions=pos, indices=np.array(idx, I32), normals=nrm, uvs=uv)
+
+
 def icosphere(subdivisions: int = 3, radius: float = 1.0) -> Mesh:
     """Subdivided icosahedron: 20 * 4**subdivisions uniform triangles."""
     t = (1.0 + np.sqrt(5.0)) / 2.0

@@ -1,27 +1,79 @@
-"""The clip tail of triangle setup (counterpart of the clip-path subset of
-``ash_renderer_tpu/ops/geometry.py``): budgeted compaction of needs-clip
-triangles, Sutherland-Hodgman against the guard frustum, fan
-triangulation, snap, cull and winding, in the spec's op order.  Plain torch
-ops: the tail is small (``clip_budget`` triangles) and runs only on frames
-that have a clip candidate.
+"""Triangle setup in torch ops (counterpart of
+``ash_renderer_tpu/ops/geometry.py``): the vertex transform, the per-vertex
+snap + outcodes, the classic pipeline's whole setup (``geometry_device``,
+whose meshlet branch gathers corners through kernel K5) and the fused
+pipeline's clip tail (``clip_tail_fused``).  The clip path is a budgeted
+compaction of needs-clip triangles, Sutherland-Hodgman against the guard
+frustum, fan triangulation, snap, cull and winding, in the spec's op order;
+it runs only on frames that have a clip candidate.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .. import specmath as sm
+from ..rtypes import SETUP_F32_FIELDS, TriangleSetup
+from . import meshlet_gather
 
 ATTR_COLS = 12
 MAX_CLIP_VERTS = 9
 MAX_CLIP_TRIS = MAX_CLIP_VERTS - 2
 POLY_SLOTS = 12  # intermediate polygons may exceed 9 vertices mid-pipeline
+VTX_COLS = 8  # _vertex_post's packed row: x, y, zq, iw bits, outcode, pad
 
+_SETUP_FIELDS = tuple(f.name for f in dataclasses.fields(TriangleSetup))
 _TAIL_FIELDS = (
     "valid x0 y0 x1 y1 x2 y2 zq0 zq1 zq2 inv_area2 iw0 iw1 iw2 mat".split()
 )
-_TAIL_F32 = {"inv_area2", "iw0", "iw1", "iw2"}
+
+
+def _zero_fields(names, shape, dev):
+    """Every field of a dead setup row: False / 0 / 0.0, as ``_finish_tri``
+    leaves an invalid row."""
+    return {
+        k: torch.zeros(shape, device=dev, dtype=torch.bool if k == "valid" else (
+            torch.float32 if k in SETUP_F32_FIELDS else torch.int32))
+        for k in names
+    }
+
+
+def vertex_rows(positions, vert_obj, normals, colors, uvs, model_mats,
+                mvp_mats):
+    """The vertex stage: 16 per-vertex float32 rows [clip x, y, z, w |
+    colour 4 | world normal 3 | uv 2 | world position 3], with the spec's
+    fixed mul/add association (no matmul).  One object's matrices are
+    broadcast; several are gathered by ``vert_obj``."""
+    if model_mats.shape[0] == 1:
+        models, mvps = model_mats[0], mvp_mats[0]
+    else:
+        vo = vert_obj.long()
+        models, mvps = model_mats[vo], mvp_mats[vo]
+    px, py, pz = positions[:, 0], positions[:, 1], positions[:, 2]
+    wx, wy, wz, _ = sm.apply_mat4_point(models, px, py, pz)
+    cx, cy, cz, cw = sm.apply_mat4_point(mvps, px, py, pz)
+    nx, ny, nz = sm.apply_mat3_vec(
+        models, normals[:, 0], normals[:, 1], normals[:, 2]
+    )
+    return [
+        cx, cy, cz, cw,
+        colors[:, 0], colors[:, 1], colors[:, 2], colors[:, 3],
+        nx, ny, nz,
+        uvs[:, 0], uvs[:, 1],
+        wx, wy, wz,
+    ]
+
+
+def transform_vertices(positions, vert_obj, normals, colors, uvs, model_mats,
+                       mvp_mats):
+    """Clip positions (V, 4) and the combined attribute table (V, 12):
+    [colour 4, world normal 3, uv 2, world position 3]."""
+    rows = vertex_rows(positions, vert_obj, normals, colors, uvs, model_mats,
+                       mvp_mats)
+    return torch.stack(rows[:4], dim=1), torch.stack(rows[4:], dim=1)
 
 
 def _plane_dists(c, gx: float, gy: float):
@@ -193,15 +245,7 @@ def clip_tail_fused(tblT, tri_v, mat_id, needs_clip, cfg, clip_budget: int):
     }
     if n_clip == 0:
         # all slots dead, every field zeroed
-        fields = {
-            k: torch.zeros(
-                n, device=dev,
-                dtype=torch.bool if k == "valid" else (
-                    torch.float32 if k in _TAIL_F32 else torch.int32
-                ),
-            )
-            for k in _TAIL_FIELDS
-        }
+        fields = _zero_fields(_TAIL_FIELDS, n, dev)
         z = torch.zeros((n, ATTR_COLS), dtype=torch.float32, device=dev)
         return fields, (z, z, z), stats
     sel = _select_budgeted(needs_clip, clip_budget)
@@ -221,3 +265,101 @@ def clip_tail_fused(tblT, tri_v, mat_id, needs_clip, cfg, clip_budget: int):
     a_v1 = fan_attrs[2].reshape(n, ATTR_COLS)
     a_v2 = fan_attrs[1].reshape(n, ATTR_COLS)
     return fields, (a_v0, a_v1, a_v2), stats
+
+
+def _vertex_post(clip, cfg):
+    """Per-vertex snap + frustum outcode, packed (V, 8) int32 rows [x, y,
+    zq, iw bits, outcode, 0, 0, 0].  Outcode bit p is set where plane p's
+    distance is negative: bits 0-5 the guard planes (``_plane_dists``'
+    order), bits 6-9 the screen side planes."""
+    cx, cy, cz, cw = (clip[:, k].contiguous() for k in range(4))
+    gx = float(np.float32(1.0 + 2.0 * cfg.guard_px / cfg.width))
+    gy = float(np.float32(1.0 + 2.0 * cfg.guard_px / cfg.height))
+    xi, yi, zq, iw = _snap_corner(cx, cy, cz, cw, cfg)
+    ds = (
+        cz, cw - cz,
+        gx * cw + cx, gx * cw - cx,
+        gy * cw + cy, gy * cw - cy,
+        cw + cx, cw - cx, cw + cy, cw - cy,
+    )
+    outcode = torch.zeros_like(xi)
+    for pi, d in enumerate(ds):
+        outcode = outcode | ((d < 0).to(torch.int32) << pi)
+    zero = torch.zeros_like(xi)
+    return torch.stack(
+        [xi, yi, zq, sm.bitcast_i32(iw), outcode, zero, zero, zero], dim=1
+    )
+
+
+def geometry_device(clip, attrs, tri_v, tri_mat, cfg, clip_budget: int,
+                    local_tri=None):
+    """The classic pipeline's triangle setup.
+
+    clip (V, 4) and attrs (V, 12) from ``transform_vertices``; tri_v (T, 3)
+    int32 vertex ids (-1 rows are padding); tri_mat (T,) int32 materials.
+    With ``local_tri`` (T, 3) meshlet-local ids, the corner rows come from
+    kernel K5 (``meshlet_gather.gather_tri_rows``), else from a row gather
+    by ``tri_v``; both give the same rows.  Returns (TriangleSetup of
+    S = T + 7 * clip_budget rows, combined attributes (V + 9 * clip_budget,
+    12), stats)."""
+    dev = clip.device
+    t_in = tri_v.shape[0]
+    nv_pad = clip.shape[0]
+    vid_ok = tri_v[:, 0] >= 0
+    vid = torch.clamp(tri_v, 0, nv_pad - 1)
+
+    vtx = _vertex_post(clip, cfg)
+    if local_tri is not None:
+        g3 = meshlet_gather.gather_tri_rows(vtx, local_tri)
+        corner_pack = [g3[:, VTX_COLS * k : VTX_COLS * (k + 1)] for k in range(3)]
+    else:
+        corner_pack = [vtx[vid[:, k].long()] for k in range(3)]
+    oc0, oc1, oc2 = (c[:, 4] for c in corner_pack)
+    oc_and = oc0 & oc1 & oc2
+    out_any = (oc_and & 0x3F) != 0
+    all_in = ((oc0 | oc1 | oc2) & 0x3F) == 0
+    out_screen = (oc_and >> 6) != 0
+    fast = vid_ok & all_in
+    needs_clip = vid_ok & ~all_in & ~out_any & ~out_screen
+
+    # ---- fast path
+    corner_snaps = tuple(
+        (c[:, 0], c[:, 1], c[:, 2], sm.bitcast_f32(c[:, 3])) for c in corner_pack
+    )
+    main = _finish_tri(corner_snaps, (vid[:, 0], vid[:, 1], vid[:, 2]),
+                       tri_mat, fast)
+
+    # ---- clip path: budgeted compaction of the flagged triangles
+    n_clip = int(needs_clip.sum())
+    if n_clip == 0:
+        # what the clip path gives when nothing is flagged: every slot dead
+        clipped = _zero_fields(_SETUP_FIELDS, (clip_budget, MAX_CLIP_TRIS), dev)
+        extra = torch.zeros((clip_budget * MAX_CLIP_VERTS, ATTR_COLS),
+                            dtype=torch.float32, device=dev)
+    else:
+        sel = _select_budgeted(needs_clip, clip_budget)
+        sel_ok = sel >= 0
+        sel_c = torch.clamp(sel, 0, t_in - 1).long()
+        corners = vid[sel_c].long()  # (B, 3)
+        vbase = nv_pad + MAX_CLIP_VERTS * torch.arange(
+            clip_budget, dtype=torch.int32, device=dev)
+        clipped, _, poly_a = clip_fan_path(
+            clip[corners], attrs[corners], tri_mat[sel_c], sel_ok, cfg, vbase
+        )
+        # extra attribute rows: the polygon vertices in rank slots
+        extra = torch.where(
+            sel_ok[:, None, None], poly_a[:, :MAX_CLIP_VERTS],
+            torch.zeros((), dtype=torch.float32, device=dev),
+        ).reshape(clip_budget * MAX_CLIP_VERTS, ATTR_COLS)
+
+    su = TriangleSetup(**{
+        k: torch.cat([main[k], clipped[k].reshape(-1)]) for k in _SETUP_FIELDS
+    })
+    stats = {
+        "clip_overflow": n_clip - min(n_clip, clip_budget),
+        "n_fast": fast.sum(),
+        "n_clipped": n_clip,
+        "n_valid": su.valid.sum(),
+        "n_setup": su.valid.shape[0],
+    }
+    return su, torch.cat([attrs, extra]), stats

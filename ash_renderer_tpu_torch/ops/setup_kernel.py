@@ -33,6 +33,7 @@ from .. import _build
 from .. import specmath as sm
 from ..scene import MESHLET_TRIS, MESHLET_VERTS
 from . import binsort
+from .geometry import vertex_rows
 from .tritables import ID_COL, TBL_COLS
 
 N_TBL_ROWS = 16  # clip x,y,z,w + 12 attrs
@@ -57,26 +58,9 @@ def prep_static(local_tri: np.ndarray, tri_mat: np.ndarray,
 def transform_vertices_T(positions, vert_obj, normals, colors, uvs,
                          model_mats, mvp_mats):
     """Vertex stage: (16, V) int32 table [clip4 | color4 | world normal3 |
-    uv2 | world pos3] (float32 bits), with the spec's fixed mul/add
-    association (no matmul)."""
-    if model_mats.shape[0] == 1:
-        models, mvps = model_mats[0], mvp_mats[0]
-    else:
-        vo = vert_obj.long()
-        models, mvps = model_mats[vo], mvp_mats[vo]
-    px, py, pz = positions[:, 0], positions[:, 1], positions[:, 2]
-    wx, wy, wz, _ = sm.apply_mat4_point(models, px, py, pz)
-    cx, cy, cz, cw = sm.apply_mat4_point(mvps, px, py, pz)
-    nx, ny, nz = sm.apply_mat3_vec(
-        models, normals[:, 0], normals[:, 1], normals[:, 2]
-    )
-    rows = [
-        cx, cy, cz, cw,
-        colors[:, 0], colors[:, 1], colors[:, 2], colors[:, 3],
-        nx, ny, nz,
-        uvs[:, 0], uvs[:, 1],
-        wx, wy, wz,
-    ]
+    uv2 | world pos3] (float32 bits): ``geometry.vertex_rows`` stacked."""
+    rows = vertex_rows(positions, vert_obj, normals, colors, uvs, model_mats,
+                       mvp_mats)
     return sm.bitcast_i32(torch.stack(rows, dim=0))
 
 

@@ -1,9 +1,10 @@
-"""Deferred shading in torch ops (counterpart of the fused path's subset of
+"""Deferred shading in torch ops (counterpart of
 ``ash_renderer_tpu/ops/shade.py``): the interpolation half the raster
 kernel's phase E runs, the surface half up to the texture tap
 (``surface_prelight``, which the raster kernel's phase F runs on the card),
-the rest (``combine_from_prelight``: texture tap, lighting combine, clear)
-and the resolve + RGBA8 pack.
+the rest (``combine_from_prelight``: texture tap, lighting combine, clear),
+the classic pipeline's per-pixel winner gather (``shade``) and the resolve
++ RGBA8 pack.
 
 Every op is a single IEEE float32 mul/add/sub, a select, an integer op or a
 table gather, in the spec's association, so results equal the reference's
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import specmath as sm
+from ..rtypes import SETUP_F32_FIELDS
 from ..specmath import _f32
 from ..textures import MAX_LEVELS
 
@@ -312,6 +314,54 @@ def combine_from_prelight(valid, p, diffuse, spec, lit, tap, fu, fv, texmask,
         np.asarray(clear_color, dtype=np.float32), device=p.device
     )
     return torch.where(valid[..., None], p.movedim(-2, -1), clear)
+
+
+_PACK_FIELDS = "x0 y0 x1 y1 x2 y2 inv_area2 iw0 iw1 iw2 v0 v1 v2 mat".split()
+
+
+def pack_setup_table(su):
+    """(S, 14) int32 per-triangle shading fields of a TriangleSetup (floats
+    as their bits): one row gather per pixel fetches all of them."""
+    return torch.stack([sm.bitcast_i32(getattr(su, k)) if k in SETUP_F32_FIELDS
+                        else getattr(su, k) for k in _PACK_FIELDS], dim=1)
+
+
+def shade(vis_tri, su, attrs, shade_mode, consts, atlas=None, light=None,
+          cfg=None, clear_color=(0.0, 0.0, 0.0, 1.0)):
+    """Shade the classic pipeline's visibility buffer into (H, W, 4) f32
+    RGBA at render resolution: each pixel gathers its winner's setup row
+    (``pack_setup_table``) and its three corner rows of the combined
+    attribute table ``attrs`` (VA, 12), then ``shade_gathered``.
+    ``shade_mode`` and ``consts``: the scene's ``pipeline.surface_mode``
+    and ``pack_shade_consts``."""
+    valid = vis_tri >= 0
+    packed = _take(pack_setup_table(su), vis_tri)  # (H, W, 14)
+    g = {k: sm.bitcast_f32(packed[..., i]) if k in SETUP_F32_FIELDS
+         else packed[..., i] for i, k in enumerate(_PACK_FIELDS)}
+    corners = [_take(attrs, g[k]).movedim(-1, -2) for k in ("v0", "v1", "v2")]
+    return shade_gathered(valid, g, *corners, shade_mode, consts, atlas=atlas,
+                          light=light, cfg=cfg, clear_color=clear_color)
+
+
+def shade_gathered(valid, g, a0, a1, a2, shade_mode, consts, atlas=None,
+                   light=None, cfg=None, clear_color=(0.0, 0.0, 0.0, 1.0)):
+    """Shading from already fetched winner data: ``g`` the per-pixel setup
+    fields (H, W) and the corner attributes a0-a2 (H, 12, W), pixel (x, y)
+    at [y, x].  The reference's ``interp_fields`` + ``shade_surface`` are
+    here ``interp_fields_stacked``, ``surface_prelight`` and
+    ``combine_from_prelight``, the definition the fused route uses.
+    Returns (H, W, 4) f32 RGBA."""
+    h, w = valid.shape
+    dev = valid.device
+    px = torch.arange(w, dtype=I32, device=dev).expand(h, w)
+    py = torch.arange(h, dtype=I32, device=dev)[:, None].expand(h, w)
+    attr, duv = interp_fields_stacked(g, a0, a1, a2, px, py, cfg)
+    pre = surface_prelight(attr, duv, g["mat"], shade_mode, consts)
+    return combine_from_prelight(
+        valid, *pre, atlas=atlas if shade_mode[3] else None,
+        light=light if shade_mode[4] else None, has_materials=shade_mode[2],
+        clear_color=clear_color,
+    )
 
 
 def resolve_and_pack(rgba, supersample: int, srgb: bool):

@@ -1,8 +1,15 @@
-"""The frame pipeline: scene tensors + camera matrices -> RGBA8 frame.
+"""The frame pipelines: scene tensors + camera matrices -> RGBA8 frame.
 
-The counterpart of the meshlet path of ``ash_renderer_tpu/pipeline.py``
-(``render_frame_fused_staged``).  Stages, each a plain call on tensors of
-one device:
+The counterpart of ``ash_renderer_tpu/pipeline.py``'s two pipelines.  The
+classic one (``render_frame``, which the Renderer takes for scenes under
+4096 triangles): vertex transform, triangle setup (``geometry_device``,
+with kernel K5 on a meshlet-packed scene), tile binning
+(``binning.bin_triangles``), visibility raster (kernel K4,
+``raster_visibility.rasterize_visibility``), per-pixel winner gather and
+shading (``shade.shade``), resolve + pack.
+
+The fused one (``render_frame_fused_staged``, meshlet-packed scenes).
+Stages, each a plain call on tensors of one device:
 
 1. vertex transform (``setup_kernel.transform_vertices_T``);
 2. triangle setup, kernel K1 (``setup_kernel.triangle_setup``);
@@ -29,7 +36,8 @@ from typing import Optional
 import torch
 
 from .config import RasterConfig, RendererSettings
-from .ops import binsort, fused_kernel, geometry, setup_kernel, shade, tritables
+from .ops import (binning, binsort, fused_kernel, geometry, raster_visibility,
+                  setup_kernel, shade, tritables)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +104,46 @@ def expand_table(statics, comb, order, bounds):
 
 def _no_stage(name):
     pass
+
+
+def render_frame(statics: FrameStatics, state, model_mats, mvp_mats,
+                 camera_pos, local_tri=None, on_stage=_no_stage):
+    """One classic-pipeline frame on ``state``'s device (16x128 tiles).
+    ``local_tri``: the meshlet-local corner ids of a meshlet-packed scene,
+    which take the corner gather through kernel K5.  Returns (rgba8 (H, W,
+    4) uint8, aux dict with vis_d16, vis_tri and the geometry and binning
+    counters).  ``on_stage(name)`` is called as each stage has been
+    issued."""
+    cfg = statics.cfg
+    st = statics.settings
+    clip, attrs = geometry.transform_vertices(
+        state.positions, state.vert_obj, state.normals, state.colors,
+        state.uvs, model_mats, mvp_mats,
+    )
+    on_stage("transform")
+    su, attrs_full, gstats = geometry.geometry_device(
+        clip, attrs, state.tri_v, state.tri_mat, cfg, st.clip_budget,
+        local_tri=local_tri,
+    )
+    on_stage("geometry")
+    rec_i, rec_f, tile_start, tile_count, bstats = binning.bin_triangles(
+        su, cfg, st.max_pairs
+    )
+    on_stage("binning")
+    vis_d, vis_t = raster_visibility.rasterize_visibility(
+        rec_i, rec_f, tile_start, tile_count, cfg
+    )
+    on_stage("raster_K4")
+    atlas = state.atlas if statics.has_atlas else None
+    light = state.light if statics.has_light else None
+    mode = surface_mode(statics, state.materials, atlas, light)
+    consts = shade.pack_shade_consts(mode, state.materials, atlas, light,
+                                     camera_pos)
+    rgba = shade.shade(vis_t, su, attrs_full, mode, consts, atlas=atlas,
+                       light=light, cfg=cfg, clear_color=st.clear_color)
+    rgba8 = shade.resolve_and_pack(rgba, st.supersample, st.srgb_output)
+    on_stage("shade_pack")
+    return rgba8, {"vis_d16": vis_d, "vis_tri": vis_t, **gstats, **bstats}
 
 
 def render_front(statics, state, model_mats, mvp_mats, on_stage=_no_stage):

@@ -380,6 +380,28 @@ class PackedScene:
         )
 
 
+def reference_two_triangle_scene() -> Scene:
+    """The reference's hard-coded scene: 6 vertices, 2 triangles at z=2 and
+    z=3 with per-vertex colours and indices [0..5].  Under CCW-front + back
+    culling only the z=2 triangle is front-facing."""
+    positions = [
+        [-1.0, 1.0, 2.0], [1.0, 1.0, 2.0], [0.0, -1.0, 2.0],
+        [-1.0, -1.0, 3.0], [1.0, -1.0, 3.0], [0.0, 1.0, 3.0],
+    ]
+    colors = [
+        [1.0, 1.0, 0.0, 1.0], [1.0, 0.0, 1.0, 1.0], [1.0, 1.0, 0.0, 1.0],
+        [0.0, 1.0, 0.5, 1.0], [0.5, 0.0, 1.0, 1.0], [1.0, 0.5, 0.0, 1.0],
+    ]
+    mesh = Mesh(
+        positions=np.array(positions, dtype=_F32),
+        indices=np.array([[0, 1, 2], [3, 4, 5]], dtype=_I32),
+        colors=np.array(colors, dtype=_F32),
+    )
+    scene = Scene()
+    scene.add_object(SceneObject(mesh=scene.add_mesh(mesh), model=mathx.IDENTITY))
+    return scene
+
+
 def scene_from_reference(ref) -> Scene:
     """The port's ``Scene`` holding the same meshes, objects, materials,
     light and atlas images as ``ref``, a scene built with the JAX package.

@@ -28,8 +28,10 @@ class SceneState:
     uvs: torch.Tensor  # (V, 2) f32
     tri_v: torch.Tensor  # (T, 3) i32, -1 rows = padding
     tri_mat: torch.Tensor  # (T,) i32 per-triangle material ids
-    ltT: torch.Tensor  # (M, 384) i32 transposed meshlet-local corner ids
-    matT: torch.Tensor  # (M, 128) i32
+    # meshlet-packed scenes only (None otherwise): the setup kernel's
+    # transposed meshlet-local corner ids (M, 384) and materials (M, 128)
+    ltT: Optional[torch.Tensor]
+    matT: Optional[torch.Tensor]
     materials: Optional[MaterialsPack]
     atlas: Optional[TextureAtlas]  # fields as tensors
     light: Optional[LightPack]
@@ -40,19 +42,19 @@ def upload(packed: PackedScene, materials, atlas, light,
     """The scene's device state on ``device``, from the same host
     expressions the JAX Renderer uses.  ``materials`` is a list of
     scene.Material, ``light`` a scene.DirectionalLight or None, ``atlas``
-    a TextureAtlas or None."""
-    if packed.local_tri is None:
-        raise ValueError("the port renders meshlet-packed scenes "
-                         "(scene.pack(meshlets=True))")
+    a TextureAtlas or None.  The per-triangle materials are computed here,
+    on the host, once per scene."""
     tri_mat = packed.obj_material[
         np.clip(packed.tri_obj, 0, len(packed.obj_material) - 1)
     ]
-    ltT, matT = setup_kernel.prep_static(
-        packed.local_tri, tri_mat, packed.tri_v[:, 0] >= 0
-    )
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    ltT = matT = None
+    if packed.local_tri is not None:
+        ltT, matT = (put(a) for a in setup_kernel.prep_static(
+            packed.local_tri, tri_mat, packed.tri_v[:, 0] >= 0))
 
     mats = {
         "base_color": np.array([m.base_color for m in materials], F32),
@@ -64,7 +66,7 @@ def upload(packed: PackedScene, materials, atlas, light,
         positions=put(packed.positions), vert_obj=put(packed.vert_obj),
         normals=put(packed.normals), colors=put(packed.colors),
         uvs=put(packed.uvs), tri_v=put(packed.tri_v), tri_mat=put(tri_mat),
-        ltT=put(ltT), matT=put(matT),
+        ltT=ltT, matT=matT,
         materials=MaterialsPack(**{k: put(v) for k, v in mats.items()}),
         atlas=None if atlas is None else TextureAtlas(**{
             f.name: put(np.asarray(getattr(atlas, f.name)))

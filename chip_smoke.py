@@ -33,7 +33,26 @@ lines and seconds; any failure raises and the exit code is non-zero):
    for byte; config4 subdiv 5 and subdiv 8 with "on" equal their goldens;
    static -> moved -> static with "on"; K3F must have launched;
 10. CUDA-event frame ms: config3 "auto" vs "off", and config4 subdiv 8
-   static uncached "on" vs "auto", in turns.
+   static uncached "on" vs "auto", in turns;
+11. K4 (the classic visibility raster) and K5 (the meshlet corner gather)
+   against their plain versions, bit for bit, on the classic frame of the
+   meshlet-packed config4 at subdiv 5 (static camera and fly-by frame 12,
+   which clips) and at subdiv 8 (static camera, timed, with K5's library
+   call ``tbl[idx]``);
+12. classic frames, launch counts zeroed before them: the reference scene
+   (320x240) and the four feature scenes through ``Renderer`` ("auto"
+   routes them to classic) against their pinned sha256; the meshlet-packed
+   config4 subdiv-5 and subdiv-8 frames through ``pipeline.render_frame``
+   (K5 + K4) against their goldens, with no pair or clip overflow; config2
+   (800x600, "auto" -> classic) byte-equal to the same frame rendered on
+   the CPU, then static -> moved -> static; K4 and K5 must have launched;
+   then, outside the counted run, K4 against its plain version on the
+   records of the Renderer's own classic route at subdiv 8 (plain
+   packing), with no pair or clip overflow;
+13. CUDA-event frame ms of the classic pipeline: the reference scene and
+   config2 (800x600) through ``Renderer``, each also against "fused"
+   (front cache off) in turns, config4 subdiv 8 static "classic" vs
+   "fused" in turns, and the classic stage ms.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -63,6 +82,8 @@ SCALAR_OPS_PER_S = 67e12
 K1_OPS_PER_TRI = 150  # 3 corner snaps, outcodes, area, recip_spec, depths
 K2_OPS_PER_KEY = 2  # one compare, one store
 K3_OPS_PER_SLOT_PX = 20  # 3 edge functions (5 ops each), 3 compares, 2 ands
+K4_OPS_PER_REC_PX = 20  # 3 edge functions, 3 compares, 2 ands
+K4_WORDS_PER_REC = 15  # 14 int32 record words + inv_area2
 K3F_OPS_PER_PX = 160  # phase F: 3 rsqrt_spec chains, powi, mip and tap math
 
 
@@ -198,7 +219,8 @@ def _max_err(pairs) -> int:
 
 # CUDA-event repetitions (kernel, plain) per kernel when compare_kernels
 # also times them; the plain K3 takes ~0.3 s a call at the headline
-TIMING_REPS = {"K1": (10, 3), "K2": (20, 20), "K3": (10, 1), "K3F": (10, 1)}
+TIMING_REPS = {"K1": (10, 3), "K2": (20, 20), "K3": (10, 1), "K3F": (10, 1),
+               "K4": (10, 1), "K5": (20, 10)}
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -366,6 +388,97 @@ def compare_k3f(r, cam, label: str, errs: dict, timed: bool = False):
     n_ops += int(v2.sum()) * K3F_OPS_PER_PX
     return stats, (k_ms, p_ms, None,
                    bound_ms(n_bytes + consts.numel() * 4, n_ops))
+
+
+def classic_statics(r):
+    """The classic pipeline's statics (tiles, capped pair budget) for
+    renderer ``r``'s settings and packed scene."""
+    import dataclasses
+
+    from ash_renderer_tpu_torch.renderer import frame_statics
+
+    return frame_statics(
+        dataclasses.replace(r.settings, pipeline="classic"),
+        r.packed.tri_v.shape[0], r.statics.has_atlas, r.statics.has_light)
+
+
+def compare_classic(r, cam, label: str, errs: dict, timed: bool = False):
+    """K4, and K5 where the scene is meshlet-packed, against their plain
+    versions on the inputs the classic frame of renderer ``r``'s scene gives
+    them for camera ``cam``; folds each max |kernel - plain| into ``errs``.
+    Returns the geometry and binning counters and, with ``timed``, {kernel:
+    (kernel ms, plain ms, library ms or None, (bound ms, bound by))}."""
+    import torch
+
+    from ash_renderer_tpu_torch.ops import (binning, geometry, meshlet_gather,
+                                            raster_visibility)
+
+    s = r.state
+    statics = classic_statics(r)
+    cfg = statics.cfg
+    mm_t, mvp_t, _ = front_inputs(r, cam)
+    lt = (None if r.packed.local_tri is None
+          else torch.from_numpy(r.packed.local_tri).to(r.device))
+    reps = TIMING_REPS if timed else {k: (0, 0) for k in TIMING_REPS}
+    ms = {}
+
+    clip, attrs = geometry.transform_vertices(
+        s.positions, s.vert_obj, s.normals, s.colors, s.uvs, mm_t, mvp_t)
+    if lt is not None:
+        vtx = geometry._vertex_post(clip, cfg)
+        g, k5_ms = run_timed(lambda: meshlet_gather.gather_tri_rows(vtx, lt),
+                             reps["K5"][0])
+        g_p, p5_ms = run_timed(
+            lambda: meshlet_gather.gather_tri_rows_plain(vtx, lt), reps["K5"][1])
+        t = lt.shape[0]
+        idx = (torch.arange(t, device=lt.device)[:, None] // 128 * 128
+               + lt.long())  # every id of a packed scene lies in [0, 128)
+        g_lib, lib5_ms = run_timed(lambda: vtx[idx].reshape(t, -1),
+                                   reps["K5"][1])
+        # the table and the local ids read once (the 3 corners of a
+        # meshlet re-read its rows from L2), the gathered rows written once
+        n5 = t * 3 * vtx.shape[1]
+        ms["K5"] = (k5_ms, p5_ms, lib5_ms, bound_ms(
+            (vtx.numel() + lt.numel() + n5) * 4, n5))
+        err5 = _max_err([(g, g_p), (g, g_lib)])
+        require(err5 == 0, f"K5 differs from its plain version ({label}): {err5}")
+        errs["K5"] = max(errs.get("K5", 0), err5)
+        del g_p, g_lib
+
+    su, _, gstats = geometry.geometry_device(
+        clip, attrs, s.tri_v, s.tri_mat, cfg, r.settings.clip_budget,
+        local_tri=lt)
+    rec_i, rec_f, start, count, bstats = binning.bin_triangles(
+        su, cfg, statics.settings.max_pairs)
+    (vd, vt), k4_ms = run_timed(lambda: raster_visibility.rasterize_visibility(
+        rec_i, rec_f, start, count, cfg), reps["K4"][0])
+    (vd_p, vt_p), p4_ms = run_timed(
+        lambda: raster_visibility.rasterize_visibility_plain(
+            rec_i, rec_f, start, count, cfg), reps["K4"][1])
+    n_rec = int(count.sum())
+    n_px = cfg.grid_h * 16 * cfg.grid_w * 128
+    ms["K4"] = (k4_ms, p4_ms, None, bound_ms(
+        n_rec * K4_WORDS_PER_REC * 4 + count.numel() * 2 * 4 + 2 * n_px * 4,
+        n_rec * 16 * 128 * K4_OPS_PER_REC_PX))
+    err4 = _max_err([(vd, vd_p), (vt, vt_p)])
+    require(err4 == 0, f"K4 differs from its plain version ({label}): {err4} "
+            f"({int((vt != vt_p).sum())} winner ids differ)")
+    errs["K4"] = max(errs.get("K4", 0), err4)
+    stats = {k: int(v) for k, v in {**gstats, **bstats}.items()}
+    say(f"{label}: {'K4' if lt is None else 'K5, K4'} bit-equal to plain; covered px "
+        f"{int((vt >= 0).sum())}, clipped {stats['n_clipped']}, valid "
+        f"{stats['n_valid']}, pairs {stats['pairs_total']} (max per tile "
+        f"{int(count.max())})")
+    return stats, (ms if timed else None)
+
+
+def turns(card: str, label: str, legs, cams) -> None:
+    """Frame medians of each (name, renderer) leg in turns (a, b, b, a)."""
+    med = {name: [] for name, _ in legs}
+    for name, r in legs + legs[::-1]:
+        med[name].append(frames_ms(r, cams)[0])
+    say(f"[{card}] frame ms, {label}, median per leg in turns: " + "; ".join(
+        f"{name} {', '.join(f'{m:.3f}' for m in ms)}" for name, ms in med.items()))
 
 
 def stage_ms(r, cam) -> dict:
@@ -579,29 +692,123 @@ def main() -> int:
         del r5on, r3off
 
     with Phase("10 phase F timings"):
-        def turns(label, legs, cams):
-            """Frame medians of each leg in turns (a, b, b, a)."""
-            med = {name: [] for name, _ in legs}
-            for name, r in legs + legs[::-1]:
-                med[name].append(frames_ms(r, cams)[0])
-            say(f"[{card}] frame ms, {label}, median per leg in turns: " + "; ".join(
-                f"{name} {', '.join(f'{m:.3f}' for m in ms)}" for name, ms in med.items()))
-
         nocache = dict(front_coherence=False)
         r3u = Renderer(scene3, dataclasses.replace(st3, **nocache), device=dev)
         r3u_off = Renderer(scene3, dataclasses.replace(
             st3, fused_surface_shade="off", **nocache), device=dev)
-        turns("config3 static uncached", [("auto", r3u), ("off", r3u_off)],
+        turns(card, "config3 static uncached", [("auto", r3u), ("off", r3u_off)],
               [cams3[0]] * N_FRAMES)
         del r3u, r3u_off, r8on
         r8u = Renderer(scene8, dataclasses.replace(st8, **nocache), device=dev)
         r8u_on = Renderer(scene8, dataclasses.replace(on, **nocache), device=dev)
-        turns("config4 subdiv 8 static uncached", [("auto", r8u), ("on", r8u_on)],
+        turns(card, "config4 subdiv 8 static uncached", [("auto", r8u), ("on", r8u_on)],
               [cams8[0]] * N_FRAMES)
         stage_ms(r8u_on, cams8[0])  # warm-up
         say(f"[{card}] stage ms (subdiv 8 on, static, uncached): " + ", ".join(
             f"{k} {v:.3f}" for k, v in stage_ms(r8u_on, cams8[0]).items()))
         del r8u, r8u_on
+
+    with Phase("11 K4 and K5 vs plain (classic frame, config4 meshlets)"):
+        compare_classic(r5, cams5[0], "classic static subdiv 5", errs)
+        stats = compare_classic(r5, flyby_camera(FLYBY_FRAME, N_FRAMES),
+                                "classic fly-by subdiv 5", errs)[0]
+        require(stats["n_clipped"] > 0, "classic fly-by frame does not clip")
+        _, timing_c = compare_classic(r8, cams8[0], "classic static subdiv 8",
+                                      errs, timed=True)
+        timing.update(timing_c)
+        for k, (kt, pt, lt, (bt, by)) in timing_c.items():
+            say(f"[{card}] {k}: kernel {kt:.4f} ms, plain torch {pt:.4f} ms, "
+                f"library {'none' if lt is None else f'{lt:.4f} ms'}, "
+                f"bound {bt:.4f} ms ({by})")
+        torch.cuda.synchronize()
+
+    from ash_renderer_tpu_torch import pipeline
+    from ash_renderer_tpu_torch.benchmarks import (GOLDEN_SCENES, GOLDEN_SHA,
+                                                   config2_multi_mesh)
+    from ash_renderer_tpu_torch.camera import Camera
+
+    with Phase("12 classic frames"):
+        _build.launches.clear()
+        for name, build in GOLDEN_SCENES.items():
+            scene_g, st_g = build()
+            rg = Renderer(scene_g, st_g, device=dev)
+            require(rg.settings.pipeline == "classic",
+                    f"{name}: auto routes to {rg.settings.pipeline}")
+            fg = rg.read_frame(rg.render_frame(Camera())[0])
+            require(sha(fg) == GOLDEN_SHA[name], f"{name}: frame != golden")
+            say(f"{name} {fg.shape[1]}x{fg.shape[0]} (auto -> classic): "
+                "golden sha256 EXACT")
+        for label, r, cam, g in (("subdiv-5", r5, cams5[0], g5),
+                                 ("subdiv-8", r8, cams8[0], g8)):
+            mm_t, mvp_t, _ = front_inputs(r, cam)
+            fc, aux = pipeline.render_frame(
+                classic_statics(r), r.state, mm_t, mvp_t,
+                torch.from_numpy(cam.position.astype("float32")).to(dev),
+                local_tri=torch.from_numpy(r.packed.local_tri).to(dev))
+            fc = fc.cpu().numpy()
+            require(int(aux["pairs_overflow"]) == 0
+                    and int(aux["clip_overflow"]) == 0,
+                    f"classic {label}: pairs or clip candidates overflow")
+            require(sha(fc) == g["sha256"], f"classic {label}: frame != golden")
+            say(f"classic {label} frame (meshlets, K5 + K4, "
+                f"{int(aux['pairs_total'])} pairs): golden sha256 EXACT")
+        scene2, st2, cams2 = config2_multi_mesh()
+        r2 = Renderer(scene2, st2, device=dev)
+        require(r2.settings.pipeline == "classic", "config2: auto is not classic")
+        f2 = r2.read_frame(r2.render_frame(cams2[0])[0])
+        r2cpu = Renderer(scene2, st2, device="cpu")
+        f2cpu = r2cpu.read_frame(r2cpu.render_frame(cams2[0])[0])
+        require((f2 == f2cpu).all(), "config2: card frame != CPU frame")
+        require(int(f2[..., :3].max()) > 0, "config2: the frame is black")
+        say(f"config2 {f2.shape[1]}x{f2.shape[0]} (auto -> classic): card "
+            "frame byte-equal to the CPU frame (plain versions)")
+        moved2 = orbit_path(N_FRAMES, radius=4.0, center=[0.0, 0.0, 4.0])[5]
+        fm = r2.read_frame(r2.render_frame(moved2)[0])
+        fs = r2.read_frame(r2.render_frame(cams2[0])[0])
+        require(not (fm == f2).all(), "config2: the moved frame equals the static one")
+        require((fs == f2).all(), "config2: static -> moved -> static differs")
+        say("config2: static -> moved -> static: final frame byte-equal to the first")
+        torch.cuda.synchronize()
+        counts_c = dict(_build.launches)
+        say(json.dumps(counts_c, sort_keys=True))
+        for k in ("K4_raster_classic", "K5_gather_rows"):
+            require(counts_c.get(k, 0) > 0, f"{k} was not launched in phase 12")
+        del r2cpu
+        # the Renderer's own classic route at the headline size (plain
+        # packing, the records phase 13 times): K4 against its plain version
+        r8c = Renderer(scene8, dataclasses.replace(st8, pipeline="classic"),
+                       device=dev)
+        stats = compare_classic(r8c, cams8[0], "Renderer classic subdiv 8", errs)[0]
+        require(stats["pairs_overflow"] == 0 and stats["clip_overflow"] == 0,
+                "Renderer classic subdiv 8: pairs or clip candidates overflow")
+
+    with Phase("13 classic timings"):
+        from ash_renderer_tpu_torch.scene import reference_two_triangle_scene
+
+        rref = Renderer(reference_two_triangle_scene(), device=dev)
+        for label, r, cam in (("reference 800x600", rref, Camera()),
+                              ("config2 800x600", r2, cams2[0])):
+            require(r.settings.pipeline == "classic", f"{label}: not classic")
+            med, mean, worst = frames_ms(r, [cam] * N_FRAMES)
+            say(f"[{card}] frame ms, {label} (classic): median {med:.3f}, mean "
+                f"{mean:.3f}, max {worst:.3f} ({N_FRAMES} frames)")
+            # the same scene on the fused route, for the auto rule's threshold
+            rf = Renderer(r.scene, dataclasses.replace(
+                r.settings, pipeline="fused", front_coherence=False), device=dev)
+            turns(card, f"{label} static", [("classic", r), ("fused", rf)],
+                  [cam] * N_FRAMES)
+            stage_ms(r, cam)  # warm-up
+            say(f"[{card}] stage ms ({label} classic, static): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stage_ms(r, cam).items()))
+        del rref, r2, rf
+        r8f = Renderer(scene8, dataclasses.replace(st8, front_coherence=False),
+                       device=dev)
+        turns(card, "config4 subdiv 8 static", [("classic", r8c), ("fused", r8f)],
+              [cams8[0]] * N_FRAMES)
+        stage_ms(r8c, cams8[0])  # warm-up
+        say(f"[{card}] stage ms (subdiv 8 classic, static): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stage_ms(r8c, cams8[0]).items()))
+        del r8c, r8f
         say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     meta = {
@@ -613,6 +820,10 @@ def main() -> int:
                "ash_renderer_tpu/ops/fused_kernel.py:1087", counts),
         "K3F": ("K3F_raster_shade", "ash_renderer_tpu_torch/csrc/raster.cu",
                 "ash_renderer_tpu/ops/fused_kernel.py:128", counts_f),
+        "K4": ("K4_raster_classic", "ash_renderer_tpu_torch/csrc/raster_classic.cu",
+               "ash_renderer_tpu/ops/raster_pallas.py:203", counts_c),
+        "K5": ("K5_gather_rows", "ash_renderer_tpu_torch/csrc/gather.cu",
+               "ash_renderer_tpu/ops/meshlet_gather.py:97", counts_c),
     }
     kernels = []
     for k, (name, src, rep, n) in meta.items():

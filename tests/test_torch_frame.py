@@ -45,7 +45,7 @@ def _oracle(case, cam=None):
 )
 def test_frame_matches_oracle(name):
     case = tp.make_case(name)
-    r = Renderer(case.scene, case.settings, device="cpu")
+    r = Renderer(case.scene, tp.fused(case.settings), device="cpu")
     rgba8, aux = r.render_frame(case.cam)
     o = _oracle(case)
     assert int((o["vis_tri"] >= 0).sum()) > 300
@@ -74,7 +74,7 @@ def test_headline_subdiv5_matches_golden():
 
 def test_front_cache_static_moved_static():
     case = tp.make_case("textured")
-    r = Renderer(case.scene, case.settings, device="cpu")
+    r = Renderer(case.scene, tp.fused(case.settings), device="cpu")
     moved = Camera(position=np.array([0.3, -0.1, 0.4], np.float32),
                    theta=0.05)
     a = r.read_frame(r.render_frame(case.cam)[0])
@@ -93,7 +93,7 @@ def test_front_cache_static_moved_static():
     import dataclasses
 
     uncached = Renderer(case.scene, dataclasses.replace(
-        case.settings, front_coherence=False), device="cpu")
+        tp.fused(case.settings), front_coherence=False), device="cpu")
     assert uncached._front_cache is None
     np.testing.assert_array_equal(
         uncached.read_frame(uncached.render_frame(case.cam)[0]), a
@@ -104,7 +104,7 @@ def test_stage_hook_order_and_cache():
     """render_frame reports each stage as it is issued, in pipeline order;
     a front-cache hit reports only the stages after the front."""
     case = tp.make_case("random")
-    r = Renderer(case.scene, case.settings, device="cpu")
+    r = Renderer(case.scene, tp.fused(case.settings), device="cpu")
     seen = []
     a = r.read_frame(r.render_frame(case.cam, on_stage=seen.append)[0])
     assert seen == ["mvp_upload", "transform", "setup_K1", "clip_tail",
@@ -117,24 +117,64 @@ def test_stage_hook_order_and_cache():
 
 
 def test_renderer_device_and_pipeline_policy():
-    case = tp.make_case("random")
-    with pytest.raises(TypeError):
-        Renderer(case.scene, case.settings)  # no device: never picked here
+    """The reference's routing: "auto" takes the classic pipeline under
+    4096 triangles (counted over the meshes, not the objects) and the fused
+    one from 4096; an explicit pipeline is honoured."""
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="item 12"):
+    from ash_renderer_tpu_torch.scene import Mesh, Scene, SceneObject
+
+    case = tp.make_case("random")  # 220 triangles
+    with pytest.raises(TypeError):
+        Renderer(case.scene, case.settings)  # no device: never picked here
+    with pytest.raises(ValueError, match="unknown pipeline"):
         Renderer(case.scene, dataclasses.replace(case.settings,
-                                                 pipeline="classic"),
+                                                 pipeline="staged"),
                  device="cpu")
     r = Renderer(case.scene, case.settings, device=torch.device("cpu"))
-    assert r.settings.pipeline == "fused"
+    assert case.settings.pipeline == "auto"
+    assert r.settings.pipeline == "classic"
+    assert r.packed.local_tri is None and r.state.ltT is None
+    assert r.cfg.tile_h == 16 and r._front_cache is None
+    # the classic pair budget, capped by the triangle count
+    assert r.statics.settings.max_pairs == 1 << 14
     assert r.state.positions.device.type == "cpu"
+    for name in ("fused", "classic"):
+        r = Renderer(case.scene, dataclasses.replace(case.settings,
+                                                     pipeline=name),
+                     device="cpu")
+        assert r.settings.pipeline == name
+        assert (r.packed.local_tri is not None) == (name == "fused")
+    with pytest.raises(ValueError, match="8-row"):
+        Renderer(case.scene, dataclasses.replace(
+            tp.fused(case.settings), fused_tile_h=4), device="cpu")
+    # the 16-row classic tiles do not read fused_tile_h
+    Renderer(case.scene, dataclasses.replace(case.settings, fused_tile_h=4),
+             device="cpu")
+
+    rng = np.random.default_rng(3)
+
+    def scene_of(n_tris, n_objects=1):
+        mesh = Mesh(positions=rng.uniform(-1, 1, (64, 3)).astype(np.float32),
+                    indices=rng.integers(0, 64, (n_tris, 3)).astype(np.int32))
+        sc = Scene()
+        m = sc.add_mesh(mesh)
+        for _ in range(n_objects):
+            sc.add_object(SceneObject(mesh=m))
+        return sc
+
+    settings = RendererSettings(width=64, height=32)
+    for n_tris, n_obj, want in ((4095, 1, "classic"), (4096, 1, "fused"),
+                                (2048, 2, "classic")):
+        r = Renderer(scene_of(n_tris, n_obj), settings, device="cpu")
+        assert r.settings.pipeline == want, (n_tris, n_obj)
 
 
 def test_draw_frame_ring():
     case = tp.make_case("random")
     r = Renderer(case.scene, RendererSettings(width=96, height=64,
-                                              frames_in_flight=2),
+                                              frames_in_flight=2,
+                                              pipeline="fused"),
                  device="cpu")
     got = []
     presented = [r.draw_frame(case.cam, on_present=got.append)
@@ -183,10 +223,15 @@ def test_port_never_imports_jax():
         from ash_renderer_tpu_torch.config import RendererSettings
         from ash_renderer_tpu_torch.renderer import Renderer
         scene, _, cams = config4_million_tri(1)
-        r = Renderer(scene, RendererSettings(width=64, height=64),
-                     device="cpu")
-        frame = r.read_frame(r.render_frame(cams[0])[0])
-        assert frame.shape == (64, 64, 4) and int(frame[..., 0].max()) > 0
+        frames = []
+        for pipeline in ("fused", "auto"):  # 80 triangles: auto is classic
+            r = Renderer(scene, RendererSettings(width=64, height=64,
+                                                 pipeline=pipeline),
+                         device="cpu")
+            frames.append(r.read_frame(r.render_frame(cams[0])[0]))
+        assert r.settings.pipeline == "classic"
+        assert frames[0].shape == (64, 64, 4) and int(frames[0][..., 0].max()) > 0
+        assert (frames[0] == frames[1]).all()
         assert not [m for m in sys.modules
                     if m.split(".")[0] in ("jax", "ash_renderer_tpu")]
         print("ok")

@@ -22,7 +22,7 @@ def test_frame_matches_jax_fused_frame():
 
     case = tp.make_case("textured")
     p = case.ref_packed
-    r = Renderer(case.scene, case.settings, device="cpu")
+    r = Renderer(case.scene, tp.fused(case.settings), device="cpu")
     got, aux = r.render_frame(case.cam)
     mats, atlas, light = tp.jax_shading(case)
     want, jaux = render_frame_fused_jit(

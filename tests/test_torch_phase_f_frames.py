@@ -72,7 +72,7 @@ def test_frame_on_phase_f_route(name, phase_f_calls):
     """The port's Renderer frame, routed through phase F, equals the JAX
     package's fused frame and (below 2**31 texels) the numpy oracle's."""
     case = tp.make_case(name)
-    r = Renderer(case.scene, case.settings, device="cpu")
+    r = Renderer(case.scene, tp.fused(case.settings), device="cpu")
     rgba8, aux = r.render_frame(case.cam)
     got = r.read_frame(rgba8)
     assert len(phase_f_calls) == 1, "phase F did not run"
@@ -84,7 +84,7 @@ def test_frame_on_phase_f_route(name, phase_f_calls):
         np.testing.assert_array_equal(got, _oracle_frame(case))
     # the phase E route gives the same frame
     off = Renderer(case.scene, dataclasses.replace(
-        case.settings, fused_surface_shade="off"), device="cpu")
+        tp.fused(case.settings), fused_surface_shade="off"), device="cpu")
     np.testing.assert_array_equal(off.read_frame(off.render_frame(case.cam)[0]),
                                   got)
     assert len(phase_f_calls) == 1
@@ -99,7 +99,7 @@ def test_blinn_phong_golden_on_phase_f_route(phase_f_calls):
 
     ref_scene, settings = blinn_phong_specular()
     case = tp.case_from(ref_scene, settings)
-    r = Renderer(case.scene, case.settings, device="cpu")
+    r = Renderer(case.scene, tp.fused(case.settings), device="cpu")
     got = r.read_frame(r.render_frame(case.cam)[0])
     assert phase_f_calls == [(1, 0, True, False, True)]
     want = np.asarray(Image.open(os.path.join(

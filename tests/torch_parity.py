@@ -157,6 +157,78 @@ SCENES = {
 }
 
 
+def _random_mesh(seed, nv, nt, spread, zoff):
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-spread, spread, (nv, 3)).astype(F32)
+    pos[:, 2] += zoff
+    return rng, pos, rng.integers(0, nv, (nt, 3)).astype(np.int32)
+
+
+def _parity_random(seed, nv, nt, spread, zoff):
+    rng, pos, idx = _random_mesh(seed, nv, nt, spread, zoff)
+    sc = Scene()
+    sc.add_object(SceneObject(mesh=sc.add_mesh(Mesh(
+        positions=pos, indices=idx,
+        colors=rng.uniform(0, 1, (nv, 4)).astype(F32)))))
+    return sc
+
+
+def _parity_lit_textured():
+    from ash_renderer_tpu import DirectionalLight, Material
+    from ash_renderer_tpu.textures import TextureAtlas, checkerboard
+
+    rng, pos, idx = _random_mesh(8, 64, 48, 1.5, 3.0)
+    mesh = Mesh(positions=pos, indices=idx,
+                colors=rng.uniform(0.2, 1, (64, 4)).astype(F32),
+                uvs=rng.uniform(0, 2, (64, 2)).astype(F32)).compute_normals()
+    sc = Scene(materials=[Material(texture_id=0, specular=0.5, shininess=32)],
+               light=DirectionalLight(direction=(0.4, -0.6, 0.7), ambient=0.2))
+    sc.add_object(SceneObject(mesh=sc.add_mesh(mesh)))
+    sc.atlas = TextureAtlas.build([checkerboard(64)])
+    return sc
+
+
+def _parity_multi_object():
+    rng = np.random.default_rng(10)
+    quad = Mesh(
+        positions=np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], F32),
+        indices=np.array([[0, 2, 1], [0, 3, 2]], np.int32),
+        colors=rng.uniform(0, 1, (4, 4)).astype(F32),
+    )
+    sc = Scene()
+    mi = sc.add_mesh(quad)
+    for i in range(5):
+        sc.add_object(SceneObject(mesh=mi, model=mathx.compose(
+            mathx.translation([0.3 * i - 0.6, 0.2 * i - 0.4, 2.5 + 0.5 * i]),
+            mathx.rotation_z(0.3 * i))))
+    return sc
+
+
+def _reference_scene():
+    from ash_renderer_tpu import reference_two_triangle_scene
+
+    return reference_two_triangle_scene()
+
+
+# The scenes of tests/test_pipeline_parity.py (the same seeds and sizes),
+# for the classic pipeline: name -> (scene builder, settings, meshlets)
+CLASSIC_SCENES = {
+    "reference": (_reference_scene, RendererSettings(width=256, height=192),
+                  False),
+    "random": (lambda: _parity_random(5, 100, 80, 2.0, 3.5),
+               RendererSettings(width=160, height=96), False),
+    "clip_heavy": (lambda: _parity_random(6, 60, 50, 4.0, 0.8),
+                   RendererSettings(width=128, height=64), False),
+    "lit_textured_ssaa": (_parity_lit_textured,
+                          RendererSettings(width=96, height=64, supersample=2),
+                          False),
+    "multi_object": (_parity_multi_object,
+                     RendererSettings(width=144, height=112), False),
+    "meshlets": (lambda: _parity_random(77, 120, 200, 2.0, 3.0),
+                 RendererSettings(width=160, height=96), True),
+}
+
+
 @dataclasses.dataclass
 class Case:
     scene: object  # the port's, carried across from ref_scene
@@ -194,9 +266,11 @@ def port_camera(cam):
                          for f in dataclasses.fields(cam)})
 
 
-def case_from(scene, settings, cam=None):
+def case_from(scene, settings, cam=None, meshlets=True, tile_h=8):
     """A case from a JAX-package scene, settings and camera, carried across
-    into the port's types."""
+    into the port's types.  The defaults are the fused pipeline's packing
+    and tiles; the classic pipeline's are ``meshlets=False, tile_h=16``
+    (``classic_case``)."""
     from ash_renderer_tpu_torch.config import derive_raster_config as port_cfg
     from ash_renderer_tpu_torch.scene import scene_from_reference
 
@@ -208,12 +282,27 @@ def case_from(scene, settings, cam=None):
     pscene = scene_from_reference(scene)
     return Case(
         scene=pscene, settings=port_settings(settings),
-        packed=pscene.pack(meshlets=True), cfg=port_cfg(w, h, tile_h=8),
+        packed=pscene.pack(meshlets=meshlets), cfg=port_cfg(w, h, tile_h=tile_h),
         cam=port_camera(cam), mm=mm, mvp=compose_mvp(mm, view, proj),
         view=view, proj=proj, ref_scene=scene, ref_settings=settings,
-        ref_packed=scene.pack(meshlets=True),
-        ref_cfg=derive_raster_config(w, h, tile_h=8), ref_cam=cam,
+        ref_packed=scene.pack(meshlets=meshlets),
+        ref_cfg=derive_raster_config(w, h, tile_h=tile_h), ref_cam=cam,
     )
+
+
+def classic_case(scene, settings, cam=None, meshlets=False):
+    """case_from with the classic pipeline's 16-row tiles; plain packing
+    unless ``meshlets`` (the classic frame of a meshlet-packed scene, whose
+    corner gather takes kernel K5)."""
+    from ash_renderer_tpu_torch.ops.raster_visibility import TILE_H
+
+    return case_from(scene, settings, cam, meshlets=meshlets, tile_h=TILE_H)
+
+
+def fused(settings):
+    """``settings`` with the fused pipeline named: the tests of the fused
+    route use it on scenes that "auto" sends to the classic pipeline."""
+    return dataclasses.replace(settings, pipeline="fused")
 
 
 def jax_statics(case):
@@ -370,3 +459,92 @@ def compare_f_planes(got, want):
     np.testing.assert_array_equal(planes[:, fk.F_TEXMASK + 1:],
                                   want_p[:, fk.F_TEXMASK + 1:])
     return planes, valid
+
+
+# ---------------------------------------------------------------------------
+# Classic frames: the port's, the numpy oracle's and the JAX package's
+# ---------------------------------------------------------------------------
+
+CLASSIC_STATS = ("clip_overflow", "n_fast", "n_clipped", "n_valid", "n_setup",
+                 "pairs_total", "pairs_overflow")
+
+
+def classic_parity_case(name):
+    build, settings, meshlets = CLASSIC_SCENES[name]
+    return classic_case(build(), settings, meshlets=meshlets)
+
+
+def classic_oracle(case):
+    """The numpy oracle's frame of the case's JAX-package scene."""
+    from ash_renderer_tpu.oracle import render_oracle
+
+    mats, atlas, light = jax_shading(case)
+    return render_oracle(
+        case.ref_packed, case.mm, case.view, case.proj, case.ref_settings,
+        materials=mats, atlas=atlas, light=light,
+        camera_pos=case.ref_cam.position.astype(np.float32), cfg=case.ref_cfg,
+    )
+
+
+def port_classic_frame(case):
+    """The port's classic frame of the case, (rgba8 numpy, aux): through
+    the Renderer ("auto") for a plainly packed case; through
+    pipeline.render_frame with the meshlet-local ids (kernel K5's path) for
+    a meshlet-packed one."""
+    from ash_renderer_tpu_torch import pipeline
+    from ash_renderer_tpu_torch.renderer import Renderer
+
+    if case.packed.local_tri is None:
+        r = Renderer(case.scene, case.settings, device="cpu")
+        assert r.settings.pipeline == "classic" and r.cfg == case.cfg
+        rgba8, aux = r.render_frame(case.cam)
+        return r.read_frame(rgba8), aux
+    statics = pipeline.FrameStatics(
+        cfg=case.cfg, settings=case.settings,
+        has_atlas=case.scene.atlas is not None,
+        has_light=case.scene.light is not None)
+    rgba8, aux = pipeline.render_frame(
+        statics, port_state(case), t(case.mm), t(case.mvp),
+        torch.from_numpy(case.cam.position.astype(np.float32)),
+        local_tri=t(case.packed.local_tri))
+    return rgba8.numpy(), aux
+
+
+def jax_classic_frame(case):
+    """The JAX package's classic frame of the case (render_frame_jit, the
+    Pallas kernels in interpret mode): (rgba8, aux) as numpy."""
+    from ash_renderer_tpu.pipeline import FrameStatics, render_frame_jit
+
+    p = case.ref_packed
+    mats, atlas, light = jax_shading(case)
+    statics = FrameStatics(
+        cfg=case.ref_cfg, settings=case.ref_settings, has_materials=True,
+        has_atlas=atlas is not None, has_light=light is not None,
+        interpret=True,
+    )
+    rgba8, aux = render_frame_jit(
+        statics,
+        jnp.asarray(p.positions), jnp.asarray(p.vert_obj),
+        jnp.asarray(p.normals), jnp.asarray(p.colors), jnp.asarray(p.uvs),
+        jnp.asarray(p.tri_v), jnp.asarray(p.tri_obj),
+        jnp.asarray(p.obj_material), jnp.asarray(case.mm),
+        jnp.asarray(case.mvp),
+        jnp.asarray(case.ref_cam.position.astype(np.float32)),
+        mats, atlas, light,
+        None if p.local_tri is None else jnp.asarray(p.local_tri),
+    )
+    return np.asarray(rgba8), {k: np.asarray(v) for k, v in aux.items()}
+
+
+def check_classic_frame_against_jax(name):
+    """The port's classic frame of CLASSIC_SCENES[name] equals the JAX
+    package's: RGBA8, vis_tri, vis_d16 and every counter."""
+    case = classic_parity_case(name)
+    got, aux = port_classic_frame(case)
+    want, jaux = jax_classic_frame(case)
+    assert int((jaux["vis_tri"] >= 0).sum()) > 100
+    np.testing.assert_array_equal(aux["vis_tri"].numpy(), jaux["vis_tri"])
+    np.testing.assert_array_equal(aux["vis_d16"].numpy(), jaux["vis_d16"])
+    np.testing.assert_array_equal(got, want)
+    for k in CLASSIC_STATS:
+        assert int(aux[k]) == int(jaux[k]), k
