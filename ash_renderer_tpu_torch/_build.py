@@ -73,9 +73,9 @@ KERNELS = {
         "ash_rasterize_shade": [_P] * 7 + [_I] * 4 + [_P] + [_I] * 6 + [_P],
     },
     "raster_classic.cu": {
-        # rec_i, rec_f, tile_start, tile_count, vis_d, vis_t, n_rec,
-        # n_tiles, grid_w, ss, stream
-        "ash_rasterize_visibility": [_P] * 6 + [_I] * 4 + [_P],
+        # rec_i, rec_f, rec_box, tile_start, tile_count, vis_d, vis_t,
+        # n_rec, n_tiles, grid_w, ss, stream
+        "ash_rasterize_visibility": [_P] * 7 + [_I] * 4 + [_P],
     },
     "gather.cu": {
         # tbl, local_tri, out, n_tris, n_cols, stream

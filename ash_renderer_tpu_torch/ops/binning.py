@@ -12,7 +12,8 @@
    raster's winner is an order-free minimum);
 5. per pair, the kernel record: the triangle's edge coefficients, edge
    values at the tile's corner sample, depths, id and top-left bits, with
-   E2c = area2 - E0c - E1c in wrapping int32 (exact: the true value fits);
+   E2c = area2 - E0c - E1c in wrapping int32 (exact: the true value fits),
+   and the record's pixel box;
 6. per tile, the start and count of its records.
 
 Record layout, int32 (14, P): 0-5 A0 B0 A1 B1 A2 B2; 6-8 E0c E1c E2c;
@@ -21,6 +22,15 @@ Float32 (1, P): inv_area2.  The reference adds two zero rows (a whole
 sublane tile of 16) and pads the columns by ``tri_block + 256`` for its TPU
 kernel's aligned-window DMA; the CUDA kernel reads the 14 rows only inside
 [start, start + count), so the port does neither.
+
+Box, int32 (1, P), the port's own (the reference has none):
+``col0 | col1 << 7 | row0 << 14 | row1 << 18``, the inclusive tile-local
+pixel box of the record, its triangle's ``pixel_aabb_of`` (the pixels whose
+sample lies in the snapped vertex bbox, clamped to the frame) clipped to
+the pair's tile.  A live pair's box is never empty (the pair exists because
+the AABB meets the tile); dead columns hold 0.  Kernel K4 evaluates a
+record only where its box is (``csrc/raster_classic.cu`` says why that is
+exact); ``raster_visibility.box_pixels`` counts its pixels.
 """
 
 from __future__ import annotations
@@ -32,11 +42,26 @@ from .binsort import pixel_aabb_of
 
 RECORD_ROWS = 14
 F32_ROWS = 1
+# rec_box field offsets: col0, col1 (7 bits each), row0, row1 (4 bits each)
+BOX_COL1, BOX_ROW0, BOX_ROW1 = 7, 14, 18
 
 
-def _pack_tri_table(su):
-    """(S, 16) int32 per-triangle record source: edge coefficients, two
-    edge anchors, depths, top-left bits, inv_area2 bits, area2."""
+def pack_box(col0, col1, row0, row1):
+    """rec_box words from inclusive tile-local bounds (cols 0-127, rows
+    0-15)."""
+    return col0 | (col1 << BOX_COL1) | (row0 << BOX_ROW0) | (row1 << BOX_ROW1)
+
+
+def unpack_box(rec_box):
+    """(col0, col1, row0, row1) of rec_box words."""
+    return (rec_box & 0x7F, (rec_box >> BOX_COL1) & 0x7F,
+            (rec_box >> BOX_ROW0) & 0xF, (rec_box >> BOX_ROW1) & 0xF)
+
+
+def _pack_tri_table(su, pxmin, pxmax, pymin, pymax):
+    """(S, 18) int32 per-triangle record source: edge coefficients, two
+    edge anchors, depths, top-left bits, inv_area2 bits, area2, and the
+    pixel AABB as pxmin | pxmax << 16, pymin | pymax << 16."""
     a0, b0, tl0 = sm.edge_coeffs(su.x1, su.y1, su.x2, su.y2)
     a1, b1, tl1 = sm.edge_coeffs(su.x2, su.y2, su.x0, su.y0)
     a2, b2, tl2 = sm.edge_coeffs(su.x0, su.y0, su.x1, su.y1)
@@ -48,6 +73,7 @@ def _pack_tri_table(su):
             su.x1, su.y1, su.x2, su.y2,
             su.zq0, su.zq1, su.zq2,
             bias, sm.bitcast_i32(su.inv_area2), su.area2,
+            pxmin | (pxmax << 16), pymin | (pymax << 16),
         ],
         dim=1,
     )
@@ -55,8 +81,9 @@ def _pack_tri_table(su):
 
 def bin_triangles(su, cfg, max_pairs: int):
     """Returns (records (14, max_pairs) int32, records_f (1, max_pairs)
-    float32, tile_start (n_tiles,), tile_count (n_tiles,), stats) over the
-    whole tile grid; stats: pairs_total, pairs_overflow."""
+    float32, rec_box (1, max_pairs) int32, tile_start (n_tiles,),
+    tile_count (n_tiles,), stats) over the whole tile grid; stats:
+    pairs_total, pairs_overflow."""
     dev = su.x0.device
     i32 = torch.int32
     ss = cfg.subpixel_scale
@@ -100,11 +127,14 @@ def bin_triangles(su, cfg, max_pairs: int):
                                   out_int32=True)
 
     # one row gather of the packed triangle table, then elementwise records
-    tpack = _pack_tri_table(su)[torch.clamp(tri_sorted, 0, s_rows - 1).long()]
+    t_s = torch.clamp(tri_sorted, 0, s_rows - 1).long()
+    tpack = _pack_tri_table(su, pxmin, pxmax, pymin, pymax)[t_s]
     live_p = tri_sorted >= 0
     tile_c = torch.clamp(tile_sorted, 0, n_tiles - 1)
-    sx = ((tile_c % cfg.grid_w) * cfg.tile_w) * ss + half
-    sy = ((tile_c // cfg.grid_w) * cfg.tile_h) * ss + half
+    px0 = (tile_c % cfg.grid_w) * cfg.tile_w  # the tile's first pixel
+    py0 = (tile_c // cfg.grid_w) * cfg.tile_h
+    sx = px0 * ss + half
+    sy = py0 * ss + half
     a0, b0 = tpack[:, 0], tpack[:, 1]
     a1, b1 = tpack[:, 2], tpack[:, 3]
     e0c = sm.edge_at(a0, b0, tpack[:, 6], tpack[:, 7], sx, sy)
@@ -119,5 +149,14 @@ def bin_triangles(su, cfg, max_pairs: int):
     rec_i = torch.where(live_p[None, :], torch.stack(rows, dim=0), 0)
     rec_f = torch.where(live_p, sm.bitcast_f32(tpack[:, 14]),
                         torch.zeros((), dtype=torch.float32, device=dev))[None, :]
+    # the triangle's pixel AABB clipped to the pair's tile; the packing
+    # holds because pxmin, pymin >= 0 and |every bound| < 2^15 under the
+    # int32 contract (an off-frame pxmax < 0 comes back through >>)
+    xr, yr = tpack[:, 16], tpack[:, 17]
+    col0 = torch.clamp((xr & 0xFFFF) - px0, min=0)
+    col1 = torch.clamp((xr >> 16) - px0, max=cfg.tile_w - 1)
+    row0 = torch.clamp((yr & 0xFFFF) - py0, min=0)
+    row1 = torch.clamp((yr >> 16) - py0, max=cfg.tile_h - 1)
+    rec_box = torch.where(live_p, pack_box(col0, col1, row0, row1), 0)[None, :]
     stats = {"pairs_total": total, "pairs_overflow": overflow}
-    return rec_i, rec_f, tile_start, tile_end - tile_start, stats
+    return rec_i, rec_f, rec_box, tile_start, tile_end - tile_start, stats

@@ -12,14 +12,21 @@ Per 16x128 tile, over the tile's (triangle, tile) records from
 ``binning.bin_triangles``: the three int32 edge functions
 ``e_i = (e_ic + a_i * col_s) + b_i * row_s`` from the tile-corner values
 (wrapping), the top-left rule (covered iff e_i >= 1 - bias bit i), D16
-depth (``specmath.interp_depth16``) and the minimum of (d16, -id).  Pixels
-of edge tiles past the frame are evaluated, then cropped.
+depth (``specmath.interp_depth16``) and the minimum of (d16, -id).
 
-One CUDA block per tile, 256 threads of 8 pixels each; every thread keeps
-its pixels' minima in registers (exact and order-free, no atomics) while
-the block stages the tile's records in shared memory in chunks.  What
-bounds it on the card: integer issue, ~20 ops per (record, pixel): every
-record is evaluated at all 2048 pixels of its tile.
+The plain version evaluates every record at all 2048 pixels of its tile:
+it is the definition.  The kernel evaluates a record only where its pixel
+box (``rec_box``: its triangle's pixel AABB clipped to the tile, packed by
+``binning.pack_box``) lies, which is exact because no sample outside the
+box is covered (``csrc/raster_classic.cu`` gives the argument); the box
+is clamped to the frame, so the padding pixels of edge tiles stay
+background there and the wrapper's crop to (height, width) removes them.
+One CUDA block per tile stages the tile's records in chunks and deals
+their box pixels to its threads as one flat work list, each covered pixel
+an ``atomicMin`` of the packed (d16, -id) key in shared memory.  What
+bounds it on the card: device memory, the records' 16 words each and the
+two vis planes (~39 MB on the subdiv-8 classic frame); ``box_pixels``
+counts the work the boxes leave.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import torch
 
 from .. import _build
 from .. import specmath as sm
-from .binning import F32_ROWS, RECORD_ROWS
+from .binning import F32_ROWS, RECORD_ROWS, unpack_box
 
 KERNEL = "K4_raster_classic"
 TILE_H = 16  # the classic pipeline's tile height (the Renderer's too)
@@ -42,11 +49,13 @@ def _check_cfg(cfg):
         raise ValueError("rasterize_visibility: tiles must be 16x128")
 
 
-def rasterize_visibility(rec_i, rec_f, tile_start, tile_count, cfg):
+def rasterize_visibility(rec_i, rec_f, tile_start, tile_count, cfg,
+                         rec_box=None):
     """rec_i (14, P) int32 and rec_f (1, P) float32 records, tile_start and
-    tile_count (n_tiles,) int32.  Returns (vis_d16, vis_tri) int32 cropped
-    to (height, width).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    tile_count (n_tiles,) int32, rec_box (1, P) int32 the records' pixel
+    boxes (``binning.bin_triangles``).  Returns (vis_d16, vis_tri) int32
+    cropped to (height, width).  CPU tensors take the plain version, which
+    needs no box; CUDA tensors launch the kernel, which requires it."""
     _check_cfg(cfg)
     dev = rec_i.device
     if dev.type == "cpu":
@@ -54,11 +63,14 @@ def rasterize_visibility(rec_i, rec_f, tile_start, tile_count, cfg):
                                           tile_count, cfg)
     if dev.type != "cuda":
         raise ValueError(f"rasterize_visibility: unsupported device {dev}")
+    if rec_box is None:
+        raise ValueError("rasterize_visibility: the CUDA kernel needs rec_box")
     n_tiles = cfg.n_tiles
     p = rec_i.shape[1]
     for name, x, dtype, shape in (
         ("rec_i", rec_i, torch.int32, (RECORD_ROWS, p)),
         ("rec_f", rec_f, torch.float32, (F32_ROWS, p)),
+        ("rec_box", rec_box, torch.int32, (1, p)),
         ("tile_start", tile_start, torch.int32, (n_tiles,)),
         ("tile_count", tile_count, torch.int32, (n_tiles,)),
     ):
@@ -71,11 +83,21 @@ def rasterize_visibility(rec_i, rec_f, tile_start, tile_count, cfg):
     vis_t = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     _build.launch(
         KERNEL, "ash_rasterize_visibility", dev,
-        rec_i.data_ptr(), rec_f.data_ptr(), tile_start.data_ptr(),
-        tile_count.data_ptr(), vis_d.data_ptr(), vis_t.data_ptr(), p,
-        n_tiles, cfg.grid_w, cfg.subpixel_scale,
+        rec_i.data_ptr(), rec_f.data_ptr(), rec_box.data_ptr(),
+        tile_start.data_ptr(), tile_count.data_ptr(), vis_d.data_ptr(),
+        vis_t.data_ptr(), p, n_tiles, cfg.grid_w, cfg.subpixel_scale,
     )
     return vis_d[: cfg.height, : cfg.width], vis_t[: cfg.height, : cfg.width]
+
+
+def box_pixels(rec_box):
+    """Pixels in each packed box of ``rec_box`` (any shape; 0 for an empty
+    one): the pixels K4 evaluates a record at, and the operation count of
+    its bound."""
+    col0, col1, row0, row1 = unpack_box(rec_box)
+    w = torch.clamp(col1 - col0 + 1, min=0)
+    h = torch.clamp(row1 - row0 + 1, min=0)
+    return w.long() * h.long()
 
 
 def rasterize_visibility_plain(rec_i, rec_f, tile_start, tile_count, cfg):

@@ -126,12 +126,11 @@ def render_frame(statics: FrameStatics, state, model_mats, mvp_mats,
         local_tri=local_tri,
     )
     on_stage("geometry")
-    rec_i, rec_f, tile_start, tile_count, bstats = binning.bin_triangles(
-        su, cfg, st.max_pairs
-    )
+    rec_i, rec_f, rec_box, tile_start, tile_count, bstats = (
+        binning.bin_triangles(su, cfg, st.max_pairs))
     on_stage("binning")
     vis_d, vis_t = raster_visibility.rasterize_visibility(
-        rec_i, rec_f, tile_start, tile_count, cfg
+        rec_i, rec_f, tile_start, tile_count, cfg, rec_box=rec_box
     )
     on_stage("raster_K4")
     atlas = state.atlas if statics.has_atlas else None

@@ -10,11 +10,14 @@ lines and seconds; any failure raises and the exit code is non-zero):
 2. build the CUDA kernels and the native meshlet builder from
    ``ash_renderer_tpu_torch/csrc`` (one compiler process per source, all
    at once; ptxas register and spill counts printed; fails if ptxas gives
-   either ``raster_kernel`` instantiation a stack frame or spills), and
-   hold ``native.build_meshlets`` equal to the Python meshlets;
+   K3's and K3F's ``raster_kernel``, K4's ``raster_classic_kernel`` or
+   K2's ``run_bounds_kernel`` a stack frame or spills), and hold
+   ``native.build_meshlets`` equal to the Python meshlets;
 3. each kernel against its plain torch version on the card, on config4 at
    subdiv 5 (20,480 triangles, 1080p), at the static camera and at a
-   grazing fly-by camera (clip tail, wide pairs, fine runs); then K3 and
+   grazing fly-by camera (clip tail, wide pairs, fine runs); K2 also at
+   key counts on its kernel's chunk, warp and block edges (0-2049 keys),
+   and it must refuse a key view that is not 16-byte aligned; then K3 and
    K3F on the 150x64 fine-padding scene (fine rows whose true extent runs
    past their 16-px window into the padding columns);
 4. frames through ``Renderer``: the subdiv-5 and subdiv-8 (1,310,720
@@ -25,11 +28,13 @@ lines and seconds; any failure raises and the exit code is non-zero):
    off, static cached, orbit, fly-by) and ms per stage;
 7. each kernel against its plain version at the headline shapes (subdiv
    8, static and fly-by cameras), bit for bit as in phase 3, with each
-   kernel's and plain version's CUDA-event ms at the static camera, and
-   K3's ms with ``rmeta`` zeroed (no record streamed: phases D and E
-   alone); every K3 comparison prints the streamed slots per range, the
-   slots' box pixels (``fused_kernel.slot_pixel_boxes``), the brute-force
-   slot-pixels (slots x 1024) and the covered pixels;
+   kernel's and plain version's CUDA-event ms at the static camera, K2's
+   beside ``torch.searchsorted`` and the launch floor (``torch.cuda.
+   _sleep(1)`` timed alike), and K3's ms with ``rmeta`` zeroed (no record
+   streamed: phases D and E alone); every K3 comparison prints the
+   streamed slots per range, the slots' box pixels
+   (``fused_kernel.slot_pixel_boxes``), the brute-force slot-pixels
+   (slots x 1024) and the covered pixels;
 8. K3F (the raster kernel with phase F) against its plain version, bit
    for bit: on config3 (5,120 untextured triangles, 800x600) at the static
    camera and an orbit camera, and on config4 subdiv 8 with
@@ -45,7 +50,11 @@ lines and seconds; any failure raises and the exit code is non-zero):
    against their plain versions, bit for bit, on the classic frame of the
    meshlet-packed config4 at subdiv 5 (static camera and fly-by frame 12,
    which clips) and at subdiv 8 (static camera, timed, with K5's library
-   call ``tbl[idx]``);
+   call ``tbl[idx]``); every K4 comparison prints the live records' box
+   pixels (``raster_visibility.box_pixels``, the operation count of K4's
+   bound) against the brute-force record-pixels (records x 2048), and the
+   timed one checks that K4's CUDA path refuses to run without
+   ``rec_box``;
 12. classic frames, launch counts zeroed before them: the reference scene
    (320x240) and the four feature scenes through ``Renderer`` ("auto"
    routes them to classic) against their pinned sha256; the meshlet-packed
@@ -54,12 +63,13 @@ lines and seconds; any failure raises and the exit code is non-zero):
    (800x600, "auto" -> classic) byte-equal to the same frame rendered on
    the CPU, then static -> moved -> static; K4 and K5 must have launched;
    then, outside the counted run, K4 against its plain version on the
-   records of the Renderer's own classic route at subdiv 8 (plain
-   packing), with no pair or clip overflow;
-13. CUDA-event frame ms of the classic pipeline: the reference scene and
-   config2 (800x600) through ``Renderer``, each also against "fused"
-   (front cache off) in turns, config4 subdiv 8 static "classic" vs
-   "fused" in turns, and the classic stage ms.
+   records of the five pinned scenes and config2;
+13. K4 against its plain version, timed, on the records of the Renderer's
+   own classic route at subdiv 8 (plain packing), with no pair or clip
+   overflow; CUDA-event frame ms of the classic pipeline: the reference
+   scene and config2 (800x600) through ``Renderer``, each also against
+   "fused" (front cache off) in turns, config4 subdiv 8 static "classic"
+   vs "fused" in turns, and the classic stage ms.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -90,7 +100,7 @@ K1_OPS_PER_TRI = 150  # 3 corner snaps, outcodes, area, recip_spec, depths
 K2_OPS_PER_KEY = 2  # one compare, one store
 K3_OPS_PER_SLOT_PX = 20  # 3 edge functions (5 ops each), 3 compares, 2 ands
 K4_OPS_PER_REC_PX = 20  # 3 edge functions, 3 compares, 2 ands
-K4_WORDS_PER_REC = 15  # 14 int32 record words + inv_area2
+K4_WORDS_PER_REC = 16  # 14 int32 record words, inv_area2 and the box
 K3F_OPS_PER_PX = 160  # phase F: 3 rsqrt_spec chains, powi, mip and tap math
 # K3's 7 streamed ranges, in rmeta order
 RANGE_NAMES = ("own", "above", "left", "diag", "wide", "pairs", "fine")
@@ -128,24 +138,32 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_raster_frames(log: str) -> None:
-    """ptxas's report for ``csrc/raster.cu``: both ``raster_kernel``
-    instantiations (K3, K3F) must have no stack frame and no spills."""
+# (source, kernel symbol, instantiations) whose ptxas report phase 2 holds
+# to no stack frame and no spills
+NO_FRAME_KERNELS = (("raster.cu", "raster_kernel", 2),
+                    ("raster_classic.cu", "raster_classic_kernel", 1),
+                    ("bincount.cu", "run_bounds_kernel", 1))
+
+
+def check_frames(logs: dict) -> None:
+    """ptxas's report: every kernel of ``NO_FRAME_KERNELS`` (K3 and K3F,
+    K4, K2) must have no stack frame and no spills."""
     import re
 
-    name, seen = None, 0
-    for line in log.splitlines():
-        if "Function properties for" in line:
-            name = line.split("Function properties for", 1)[1].strip()
-        elif name and "raster_kernel" in name and "stack frame" in line:
-            sizes = [int(v) for v in re.findall(r"(\d+) bytes", line)]
-            require(sizes and not any(sizes),
-                    f"ptxas: {name}: {line.strip()}")
-            seen += 1
-    require(seen == 2, f"ptxas reported {seen} raster_kernel "
-            "instantiations, not 2")
-    say("  ptxas raster.cu: no stack frame and no spills in either "
-        "raster_kernel")
+    for src, kernel, want in NO_FRAME_KERNELS:
+        name, seen = None, 0
+        for line in logs[src].splitlines():
+            if "Function properties for" in line:
+                name = line.split("Function properties for", 1)[1].strip()
+            elif name and kernel in name and "stack frame" in line:
+                sizes = [int(v) for v in re.findall(r"(\d+) bytes", line)]
+                require(sizes and not any(sizes),
+                        f"ptxas: {name}: {line.strip()}")
+                seen += 1
+        require(seen == want, f"ptxas reported {seen} {kernel} "
+                f"instantiations in {src}, not {want}")
+        say(f"  ptxas {src}: no stack frame and no spills in {kernel} "
+            f"({want} instantiation{'s' if want > 1 else ''})")
 
 
 def fine_padding_renderer(dev):
@@ -233,26 +251,36 @@ def flyby_camera(i: int, n: int):
     return Camera(position=np.array([1.02, 0.0, z], np.float32))
 
 
+TIMING_BATCHES = 3
+
+
 def run_timed(fn, reps: int = 0):
-    """``fn()``'s output and, with ``reps``, its mean CUDA-event ms over
-    ``reps`` calls after the first (else None).  A sleep kernel ahead of
-    the first event lets the host queue the calls before the card reaches
-    them, so a kernel that runs faster than the host issues it is timed on
-    the device, not on the host's issue rate."""
+    """``fn()``'s output and, with ``reps``, its CUDA-event ms per call: the
+    median over ``TIMING_BATCHES`` batches of the mean over ``reps`` calls
+    after the first (else None).  A sleep kernel ahead of each batch lets
+    the host queue the calls before the card reaches them, so a kernel that
+    runs faster than the host issues it is timed on the device, not on the
+    host's issue rate; a host stall longer than the sleep leaves the card
+    idle inside one batch, which the median sets aside.  (An event after
+    every call would add its own few microseconds to each.)"""
     import torch
 
     out = fn()
     if not reps:
         return out, None
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
-    a.record()
-    for _ in range(reps):
-        out = fn()
-    b.record()
-    torch.cuda.synchronize()
-    return out, a.elapsed_time(b) / reps
+    means = []
+    for _ in range(TIMING_BATCHES):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        for _ in range(reps):
+            out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        means.append(a.elapsed_time(b) / reps)
+    return out, sorted(means)[len(means) // 2]
 
 
 def front_inputs(r, cam):
@@ -371,6 +399,12 @@ def compare_kernels(r, cam, label: str, errs: dict, timed: bool = False):
                 bound_ms((n_keys + nb) * 4, n_keys * K2_OPS_PER_KEY))
     err2 = _max_err([(b2, b2_p)])
     require(err2 == 0, f"K2 differs from its plain version ({label}): {err2}")
+    if timed:
+        # the launch floor: a kernel that does next to nothing, timed alike
+        _, floor_ms = run_timed(lambda: torch.cuda._sleep(1), reps["K2"][0])
+        say(f"{label}: K2 {k2_ms:.4f} ms, torch.searchsorted {lib2_ms:.4f} ms, "
+            f"launch floor (torch.cuda._sleep(1)) {floor_ms:.4f} ms, bound "
+            f"{ms['K2'][3][0]:.4f} ms ({n_keys} keys, {nb} bins)")
 
     rmeta, tbl_sorted, tbl_ext, comb, stats = pipeline.render_front(
         r.statics, s, mm_t, mvp_t
@@ -417,6 +451,41 @@ def compare_kernels(r, cam, label: str, errs: dict, timed: bool = False):
 
 
 FLYBY_FRAME = 12  # near closest approach: clip tail and wide pairs live
+
+
+# key counts at csrc/bincount.cu's edges: 8 keys a thread, 256 a warp,
+# 2048 a block
+K2_EDGE_COUNTS = (0, 1, 7, 8, 9, 255, 256, 257, 2047, 2048, 2049)
+
+
+def compare_k2_edges(dev, errs: dict) -> None:
+    """K2 against its plain version at key counts on the kernel's chunk,
+    warp and block edges, dense and sparse bins; a key view that starts
+    off a 16-byte boundary must be refused with a ValueError."""
+    import numpy as np
+    import torch
+
+    from ash_renderer_tpu_torch.ops import bincount
+
+    rng = np.random.default_rng(6)
+    err = 0
+    for n in K2_EDGE_COUNTS:
+        for nb in (5, 300, 24_302):
+            keys = torch.from_numpy(np.sort(rng.integers(0, nb, n)).astype(
+                np.int32)).to(dev)
+            got = bincount.sorted_run_bounds(keys, nb)
+            err = max(err, _max_err([(got, bincount.sorted_run_bounds_plain(keys, nb))]))
+    require(err == 0, f"K2 differs from its plain version at an edge count: {err}")
+    errs["K2"] = max(errs.get("K2", 0), err)
+    keys = torch.arange(64, dtype=torch.int32, device=dev)
+    try:
+        bincount.sorted_run_bounds(keys[1:], 64)
+    except ValueError as e:
+        require("16-byte" in str(e), f"K2 misaligned keys: {e}")
+    else:
+        raise RuntimeError("K2 took a key view that is not 16-byte aligned")
+    say(f"K2 bit-equal to plain at {len(K2_EDGE_COUNTS)} edge key counts x 3 "
+        "bin counts; a misaligned key view raises ValueError")
 
 
 def compare_flyby(r, label: str, errs: dict) -> None:
@@ -494,6 +563,31 @@ def classic_statics(r):
         r.packed.tri_v.shape[0], r.statics.has_atlas, r.statics.has_light)
 
 
+def classic_records(r, cam):
+    """The classic frame of renderer ``r``'s scene for camera ``cam`` up to
+    K4's inputs: (cfg, clip-space vertices, the meshlet-local corner ids or
+    None, (rec_i, rec_f, rec_box, tile_start, tile_count), the geometry and
+    binning counters)."""
+    import torch
+
+    from ash_renderer_tpu_torch.ops import binning, geometry
+
+    s = r.state
+    statics = classic_statics(r)
+    cfg = statics.cfg
+    mm_t, mvp_t, _ = front_inputs(r, cam)
+    lt = (None if r.packed.local_tri is None
+          else torch.from_numpy(r.packed.local_tri).to(r.device))
+    clip, attrs = geometry.transform_vertices(
+        s.positions, s.vert_obj, s.normals, s.colors, s.uvs, mm_t, mvp_t)
+    su, _, gstats = geometry.geometry_device(
+        clip, attrs, s.tri_v, s.tri_mat, cfg, r.settings.clip_budget,
+        local_tri=lt)
+    *recs, bstats = binning.bin_triangles(su, cfg, statics.settings.max_pairs)
+    stats = {k: int(v) for k, v in {**gstats, **bstats}.items()}
+    return cfg, clip, lt, recs, stats
+
+
 def compare_classic(r, cam, label: str, errs: dict, timed: bool = False):
     """K4, and K5 where the scene is meshlet-packed, against their plain
     versions on the inputs the classic frame of renderer ``r``'s scene gives
@@ -502,20 +596,13 @@ def compare_classic(r, cam, label: str, errs: dict, timed: bool = False):
     (kernel ms, plain ms, library ms or None, (bound ms, bound by))}."""
     import torch
 
-    from ash_renderer_tpu_torch.ops import (binning, geometry, meshlet_gather,
-                                            raster_visibility)
+    from ash_renderer_tpu_torch.ops import geometry, meshlet_gather, raster_visibility
 
-    s = r.state
-    statics = classic_statics(r)
-    cfg = statics.cfg
-    mm_t, mvp_t, _ = front_inputs(r, cam)
-    lt = (None if r.packed.local_tri is None
-          else torch.from_numpy(r.packed.local_tri).to(r.device))
+    cfg, clip, lt, (rec_i, rec_f, rec_box, start, count), stats = (
+        classic_records(r, cam))
     reps = TIMING_REPS if timed else {k: (0, 0) for k in TIMING_REPS}
     ms = {}
 
-    clip, attrs = geometry.transform_vertices(
-        s.positions, s.vert_obj, s.normals, s.colors, s.uvs, mm_t, mvp_t)
     if lt is not None:
         vtx = geometry._vertex_post(clip, cfg)
         g, k5_ms = run_timed(lambda: meshlet_gather.gather_tri_rows(vtx, lt),
@@ -537,31 +624,47 @@ def compare_classic(r, cam, label: str, errs: dict, timed: bool = False):
         errs["K5"] = max(errs.get("K5", 0), err5)
         del g_p, g_lib
 
-    su, _, gstats = geometry.geometry_device(
-        clip, attrs, s.tri_v, s.tri_mat, cfg, r.settings.clip_budget,
-        local_tri=lt)
-    rec_i, rec_f, start, count, bstats = binning.bin_triangles(
-        su, cfg, statics.settings.max_pairs)
     (vd, vt), k4_ms = run_timed(lambda: raster_visibility.rasterize_visibility(
-        rec_i, rec_f, start, count, cfg), reps["K4"][0])
+        rec_i, rec_f, start, count, cfg, rec_box=rec_box), reps["K4"][0])
     (vd_p, vt_p), p4_ms = run_timed(
         lambda: raster_visibility.rasterize_visibility_plain(
             rec_i, rec_f, start, count, cfg), reps["K4"][1])
     n_rec = int(count.sum())
+    n_box = int(raster_visibility.box_pixels(rec_box[0, :n_rec]).sum())
     n_px = cfg.grid_h * 16 * cfg.grid_w * 128
+    # each live record's words once, the tile table, vis_d and vis_t over
+    # the padded frame; operations per pixel of each live record's box
     ms["K4"] = (k4_ms, p4_ms, None, bound_ms(
         n_rec * K4_WORDS_PER_REC * 4 + count.numel() * 2 * 4 + 2 * n_px * 4,
-        n_rec * 16 * 128 * K4_OPS_PER_REC_PX))
+        n_box * K4_OPS_PER_REC_PX))
     err4 = _max_err([(vd, vd_p), (vt, vt_p)])
     require(err4 == 0, f"K4 differs from its plain version ({label}): {err4} "
             f"({int((vt != vt_p).sum())} winner ids differ)")
     errs["K4"] = max(errs.get("K4", 0), err4)
-    stats = {k: int(v) for k, v in {**gstats, **bstats}.items()}
     say(f"{label}: {'K4' if lt is None else 'K5, K4'} bit-equal to plain; covered px "
         f"{int((vt >= 0).sum())}, clipped {stats['n_clipped']}, valid "
         f"{stats['n_valid']}, pairs {stats['pairs_total']} (max per tile "
-        f"{int(count.max())})")
+        f"{int(count.max())}), box record-pixels {n_box}, brute-force "
+        f"record-pixels {n_rec * raster_visibility.N_PIX}")
+    if timed:
+        try:
+            raster_visibility.rasterize_visibility(rec_i, rec_f, start, count, cfg)
+        except ValueError as e:
+            require("rec_box" in str(e), f"K4 without rec_box: {e}")
+        else:
+            raise RuntimeError("K4's CUDA path ran without rec_box")
+        say(f"{label}: K4 {k4_ms:.4f} ms, bound {ms['K4'][3][0]:.4f} ms "
+            f"({ms['K4'][3][1]}); without rec_box the CUDA path raises")
     return stats, (ms if timed else None)
+
+
+def say_timing(card: str, timing: dict, label: str = "") -> None:
+    """One line per kernel of a {kernel: (ms, plain ms, library ms or None,
+    (bound ms, bound by))} dict."""
+    for k, (kt, pt, lt, (bt, by)) in timing.items():
+        say(f"[{card}] {k}{label}: kernel {kt:.4f} ms, plain torch {pt:.4f} ms, "
+            f"library {'none' if lt is None else f'{lt:.4f} ms'}, "
+            f"bound {bt:.4f} ms ({by})")
 
 
 def turns(card: str, label: str, legs, cams) -> None:
@@ -650,7 +753,7 @@ def main() -> int:
             for line in log.splitlines():
                 if "Used" in line or "spill" in line or "Compiling" in line:
                     say(f"  ptxas {src}: {line.strip()}")
-        check_raster_frames(logs["raster.cu"])
+        check_frames(logs)
         check_native_meshlets()
 
     import dataclasses
@@ -666,6 +769,7 @@ def main() -> int:
         r5 = Renderer(scene5, st5, device=dev)
         compare_kernels(r5, cams5[0], "static", errs)
         compare_flyby(r5, "fly-by", errs)
+        compare_k2_edges(dev, errs)
         rfp, camfp = fine_padding_renderer(dev)
         stats = compare_kernels(rfp, camfp, "fine padding 150x64", errs)[0]
         require(stats["fine_slots"] >= 3, "fine padding: no fine rows")
@@ -752,10 +856,7 @@ def main() -> int:
                             "config4 subdiv 8 on, fly-by", errs)[0]
         require(stats["n_clipped"] > 0 and stats["wide_pairs_n"] > 0,
                 "K3F fly-by frame neither clips nor expands wide pairs")
-        for k, (kt, pt, lt, (bt, by)) in timing.items():
-            say(f"[{card}] {k}: kernel {kt:.4f} ms, plain torch {pt:.4f} ms, "
-                f"library {'none' if lt is None else f'{lt:.4f} ms'}, "
-                f"bound {bt:.4f} ms ({by})")
+        say_timing(card, timing)
         torch.cuda.synchronize()
 
     with Phase("9 the phase F path through Renderer"):
@@ -814,10 +915,7 @@ def main() -> int:
         _, timing_c = compare_classic(r8, cams8[0], "classic static subdiv 8",
                                       errs, timed=True)
         timing.update(timing_c)
-        for k, (kt, pt, lt, (bt, by)) in timing_c.items():
-            say(f"[{card}] {k}: kernel {kt:.4f} ms, plain torch {pt:.4f} ms, "
-                f"library {'none' if lt is None else f'{lt:.4f} ms'}, "
-                f"bound {bt:.4f} ms ({by})")
+        say_timing(card, timing_c)
         torch.cuda.synchronize()
 
     from ash_renderer_tpu_torch import pipeline
@@ -827,9 +925,10 @@ def main() -> int:
 
     with Phase("12 classic frames"):
         _build.launches.clear()
+        golden_rs = {}
         for name, build in GOLDEN_SCENES.items():
             scene_g, st_g = build()
-            rg = Renderer(scene_g, st_g, device=dev)
+            rg = golden_rs[name] = Renderer(scene_g, st_g, device=dev)
             require(rg.settings.pipeline == "classic",
                     f"{name}: auto routes to {rg.settings.pipeline}")
             fg = rg.read_frame(rg.render_frame(Camera())[0])
@@ -872,16 +971,27 @@ def main() -> int:
         for k in ("K4_raster_classic", "K5_gather_rows"):
             require(counts_c.get(k, 0) > 0, f"{k} was not launched in phase 12")
         del r2cpu
-        # the Renderer's own classic route at the headline size (plain
-        # packing, the records phase 13 times): K4 against its plain version
-        r8c = Renderer(scene8, dataclasses.replace(st8, pipeline="classic"),
-                       device=dev)
-        stats = compare_classic(r8c, cams8[0], "Renderer classic subdiv 8", errs)[0]
-        require(stats["pairs_overflow"] == 0 and stats["clip_overflow"] == 0,
-                "Renderer classic subdiv 8: pairs or clip candidates overflow")
+        # outside the counted run: K4 against its plain version on the
+        # records of each frame above
+        for name, rg in golden_rs.items():
+            compare_classic(rg, Camera(), f"{name} (classic)", errs)
+        compare_classic(r2, cams2[0], "config2 (classic)", errs)
+        del golden_rs
 
     with Phase("13 classic timings"):
         from ash_renderer_tpu_torch.scene import reference_two_triangle_scene
+
+        # the Renderer's own classic route at the headline size (plain
+        # packing, the frames timed below): K4 against its plain version,
+        # timed
+        r8c = Renderer(scene8, dataclasses.replace(st8, pipeline="classic"),
+                       device=dev)
+        stats, timing_r = compare_classic(r8c, cams8[0],
+                                          "Renderer classic subdiv 8", errs,
+                                          timed=True)
+        require(stats["pairs_overflow"] == 0 and stats["clip_overflow"] == 0,
+                "Renderer classic subdiv 8: pairs or clip candidates overflow")
+        say_timing(card, timing_r, " (Renderer classic subdiv 8)")
 
         rref = Renderer(reference_two_triangle_scene(), device=dev)
         for label, r, cam in (("reference 800x600", rref, Camera()),

@@ -34,19 +34,21 @@ from ash_renderer_tpu_torch import _build, pipeline  # noqa: E402
 from ash_renderer_tpu_torch.ops import fused_kernel as fk  # noqa: E402
 from ash_renderer_tpu_torch.ops import shade  # noqa: E402
 
-OUT_DIR = os.path.join(ROOT, "build", "k3_variants")
+SOURCE = "raster.cu"
 
 
-def build_variants(extra):
-    """{name: loaded library} for csrc/raster.cu and each (name, path) of
-    ``extra``; prints ptxas's resource lines for each."""
-    os.makedirs(OUT_DIR, exist_ok=True)
-    sources = {"csrc": os.path.join(_build.CSRC, "raster.cu")}
+def build_variants(extra, source=SOURCE):
+    """{name: loaded library} for csrc/``source`` and each (name, path) of
+    ``extra`` (other versions of it, with the same C entry points); prints
+    ptxas's resource lines for each."""
+    out_dir = os.path.join(ROOT, "build", f"{os.path.splitext(source)[0]}_variants")
+    os.makedirs(out_dir, exist_ok=True)
+    sources = {"csrc": os.path.join(_build.CSRC, source)}
     sources.update((name, os.path.abspath(path)) for name, path in extra)
     jobs, outs = {}, {}
     for name, src in sources.items():
-        outs[name] = os.path.join(OUT_DIR, f"{name}.so")
-        cmd = _build._command("raster.cu", outs[name], ptxas_report=True)
+        outs[name] = os.path.join(out_dir, f"{name}.so")
+        cmd = _build._command(source, outs[name], ptxas_report=True)
         jobs[name] = cmd[:1] + ["-I", _build.CSRC] + cmd[1:-1] + [src]
     procs = {n: subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                  text=True) for n, c in jobs.items()}
@@ -59,16 +61,16 @@ def build_variants(extra):
             if "Used" in line or "stack frame" in line:
                 print(f"  ptxas {name}: {line.strip()}")
         lib = ctypes.CDLL(outs[name])
-        for entry, argtypes in _build.KERNELS["raster.cu"].items():
+        for entry, argtypes in _build.KERNELS[source].items():
             getattr(lib, entry).argtypes = argtypes
             getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
-def use(lib):
-    """Route the port's raster wrapper to ``lib``."""
-    _build._LIBS["raster.cu"] = lib
+def use(lib, source=SOURCE):
+    """Route the port's wrapper of csrc/``source`` to ``lib``."""
+    _build._LIBS[source] = lib
 
 
 def main() -> int:

@@ -179,7 +179,7 @@ def test_bin_triangles_matches(name):
     a set (sorted by triangle id: the two sorts order equal tiles
     differently); the dead columns past the live pairs all zero."""
     case, (_, jsu, _, _) = _case(name)
-    _, (rec_i, rec_f, start, count, stats), want = _binning_pair(case, jsu)
+    _, (rec_i, rec_f, _, start, count, stats), want = _binning_pair(case, jsu)
     w_rec_i, w_rec_f, w_start, w_count, w_stats = (
         np.asarray(x) if not isinstance(x, dict) else x for x in want)
     p = case.settings.max_pairs
