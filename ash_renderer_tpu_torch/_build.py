@@ -51,6 +51,7 @@ launches: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # kernel source -> its C entry points: name -> argtypes (each returns
 # cudaError_t)
 KERNELS = {
@@ -80,6 +81,8 @@ KERNELS = {
     "gather.cu": {
         # tbl, local_tri, out, n_tris, n_cols, stream
         "ash_gather_tri_rows": [_P] * 3 + [_I] * 2 + [_P],
+        # n_cols, blocks (out): the persistent grid on the current device
+        "ash_gather_tri_rows_wave": [_I, _IP],
     },
 }
 _ENTRY_SOURCE = {e: s for s, entries in KERNELS.items() for e in entries}

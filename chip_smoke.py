@@ -10,8 +10,9 @@ lines and seconds; any failure raises and the exit code is non-zero):
 2. build the CUDA kernels and the native meshlet builder from
    ``ash_renderer_tpu_torch/csrc`` (one compiler process per source, all
    at once; ptxas register and spill counts printed; fails if ptxas gives
-   K3's and K3F's ``raster_kernel``, K4's ``raster_classic_kernel`` or
-   K2's ``run_bounds_kernel`` a stack frame or spills), and hold
+   K3's and K3F's ``raster_kernel``, K4's ``raster_classic_kernel``, K2's
+   ``run_bounds_kernel`` or K5's ``gather_tile_kernel`` a stack frame or
+   spills), and hold
    ``native.build_meshlets`` equal to the Python meshlets;
 3. each kernel against its plain torch version on the card, on config4 at
    subdiv 5 (20,480 triangles, 1080p), at the static camera and at a
@@ -46,8 +47,14 @@ lines and seconds; any failure raises and the exit code is non-zero):
    static -> moved -> static with "on"; K3F must have launched;
 10. CUDA-event frame ms: config3 "auto" vs "off", and config4 subdiv 8
    static uncached "on" vs "auto", in turns;
-11. K4 (the classic visibility raster) and K5 (the meshlet corner gather)
-   against their plain versions, bit for bit, on the classic frame of the
+11. K5 (the meshlet corner gather) against its plain version, bit for
+   bit, at F = 1, 3, 4, 8, 12 and 32 on 1, 2, one more than a full wave of
+   its persistent grid (SMs x blocks per SM) and twice that plus one
+   meshlets, with random int32 tables holding NaN and Inf bit patterns
+   and local ids that mix -1, 128, INT_MIN, INT_MAX and padding rows; it
+   must refuse a table view 4 bytes off a 16-byte boundary.  Then K4 (the
+   classic visibility raster) and K5 against their plain versions, bit for
+   bit, on the classic frame of the
    meshlet-packed config4 at subdiv 5 (static camera and fly-by frame 12,
    which clips) and at subdiv 8 (static camera, timed, with K5's library
    call ``tbl[idx]``); every K4 comparison prints the live records' box
@@ -142,12 +149,13 @@ def card_line() -> str:
 # to no stack frame and no spills
 NO_FRAME_KERNELS = (("raster.cu", "raster_kernel", 2),
                     ("raster_classic.cu", "raster_classic_kernel", 1),
-                    ("bincount.cu", "run_bounds_kernel", 1))
+                    ("bincount.cu", "run_bounds_kernel", 1),
+                    ("gather.cu", "gather_tile_kernel", 3))
 
 
 def check_frames(logs: dict) -> None:
     """ptxas's report: every kernel of ``NO_FRAME_KERNELS`` (K3 and K3F,
-    K4, K2) must have no stack frame and no spills."""
+    K4, K2, K5) must have no stack frame and no spills."""
     import re
 
     for src, kernel, want in NO_FRAME_KERNELS:
@@ -486,6 +494,87 @@ def compare_k2_edges(dev, errs: dict) -> None:
         raise RuntimeError("K2 took a key view that is not 16-byte aligned")
     say(f"K2 bit-equal to plain at {len(K2_EDGE_COUNTS)} edge key counts x 3 "
         "bin counts; a misaligned key view raises ValueError")
+
+
+# K5's widths: the two compiled ones (8, 12) and the run-time width's word
+# (1, 3) and 16-byte (4, 32) copies
+K5_EDGE_COLS = (1, 3, 4, 8, 12, 32)
+# float32 NaN (quiet, signalling, negative with a payload), +-Inf, -0.0
+K5_SPECIAL_WORDS = (0x7FC00000, 0x7F800001, 0xFFC12345, 0x7F800000,
+                    0xFF800000, 0x80000000)
+K5_BAD_IDS = (-1, 128, -2**31, 2**31 - 1)
+
+
+def k5_edge_inputs(nf: int, n_m: int, rng, dev):
+    """(tbl (n_m*128, nf), local_tri (n_m*128, 3)) int32 on ``dev``: random
+    words with one in 8 a NaN / Inf / -0.0 pattern; one id in 5 from
+    ``K5_BAD_IDS``; the last 5 triangles padding rows (0, 0, 0), as the
+    meshlet builder pads."""
+    import numpy as np
+    import torch
+
+    n = n_m * 128
+    tbl = rng.integers(-2**31, 2**31, (n, nf), dtype=np.int64).astype(np.int32)
+    flat = tbl.reshape(-1)
+    at = rng.choice(flat.size, max(1, flat.size // 8), replace=False)
+    special = np.array(K5_SPECIAL_WORDS, np.uint32).view(np.int32)
+    flat[at] = special[rng.integers(0, special.size, at.size)]
+    ids = rng.integers(0, 128, (n, 3)).astype(np.int32)
+    bad = rng.random((n, 3)) < 0.2
+    ids[bad] = np.array(K5_BAD_IDS, np.int32)[
+        rng.integers(0, len(K5_BAD_IDS), int(bad.sum()))]
+    ids[-5:] = 0
+    return torch.from_numpy(tbl).to(dev), torch.from_numpy(ids).to(dev)
+
+
+def k5_edge_cases(dev):
+    """[(label, tbl, local_tri)]: each width of ``K5_EDGE_COLS`` at 1, 2,
+    wave + 1 (a block walks two meshlets) and 2 wave + 1 (three: a ring
+    stage and an output tile reused) meshlets, where wave is K5's
+    persistent grid at that width."""
+    import numpy as np
+
+    from ash_renderer_tpu_torch.ops import meshlet_gather
+
+    rng = np.random.default_rng(7)
+    cases = []
+    for nf in K5_EDGE_COLS:
+        wave = meshlet_gather.persistent_wave(nf, dev)
+        for n_m in (1, 2, wave + 1, 2 * wave + 1):
+            cases.append((f"F={nf} meshlets={n_m}",
+                          *k5_edge_inputs(nf, n_m, rng, dev)))
+    return cases
+
+
+def compare_k5_edges(dev, errs: dict) -> None:
+    """K5 against its plain version on ``k5_edge_cases``, bit for bit; a
+    table view that starts 4 bytes off a 16-byte boundary must be refused
+    with a ValueError."""
+    import torch
+
+    from ash_renderer_tpu_torch.ops import meshlet_gather
+
+    cases = k5_edge_cases(dev)
+    err = 0
+    for label, tbl, lt in cases:
+        got = meshlet_gather.gather_tri_rows(tbl, lt)
+        e = _max_err([(got, meshlet_gather.gather_tri_rows_plain(tbl, lt))])
+        require(e == 0, f"K5 differs from its plain version at {label}: {e}")
+        err = max(err, e)
+    errs["K5"] = max(errs.get("K5", 0), err)
+    buf = torch.zeros(128 * 8 + 4, dtype=torch.int32, device=dev)
+    lt = torch.zeros((128, 3), dtype=torch.int32, device=dev)
+    try:
+        meshlet_gather.gather_tri_rows(buf[1:1 + 128 * 8].view(128, 8), lt)
+    except ValueError as e:
+        require("16-byte" in str(e), f"K5 misaligned table: {e}")
+    else:
+        raise RuntimeError("K5 took a table view that is not 16-byte aligned")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = ", ".join(f"F={nf} {meshlet_gather.persistent_wave(nf, dev) // sms}"
+                      for nf in K5_EDGE_COLS)
+    say(f"K5 bit-equal to plain on {len(cases)} edge cases ({sms} SMs; blocks "
+        f"per SM: {waves}); a misaligned table view raises ValueError")
 
 
 def compare_flyby(r, label: str, errs: dict) -> None:
@@ -908,6 +997,7 @@ def main() -> int:
         del r8u, r8u_on
 
     with Phase("11 K4 and K5 vs plain (classic frame, config4 meshlets)"):
+        compare_k5_edges(dev, errs)
         compare_classic(r5, cams5[0], "classic static subdiv 5", errs)
         stats = compare_classic(r5, flyby_camera(FLYBY_FRAME, N_FRAMES),
                                 "classic fly-by subdiv 5", errs)[0]

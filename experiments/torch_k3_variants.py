@@ -62,8 +62,9 @@ def build_variants(extra, source=SOURCE):
                 print(f"  ptxas {name}: {line.strip()}")
         lib = ctypes.CDLL(outs[name])
         for entry, argtypes in _build.KERNELS[source].items():
-            getattr(lib, entry).argtypes = argtypes
-            getattr(lib, entry).restype = ctypes.c_int
+            if hasattr(lib, entry):  # a variant may lack a query entry
+                getattr(lib, entry).argtypes = argtypes
+                getattr(lib, entry).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
