@@ -27,6 +27,14 @@ from ..scene import MESHLET_TRIS, MESHLET_VERTS
 KERNEL = "K5_gather_rows"
 SOURCE = "gather.cu"
 MAX_COLS = 32
+CORNER_COLS = 8  # the classic setup's corner rows (geometry.VTX_COLS)
+
+
+def launch_name(nf: int) -> str:
+    """The launch count K5 adds to at width F = ``nf``: ``KERNEL`` at the
+    classic setup's corner width, ``KERNEL_F<nf>`` at any other (F = 12:
+    ``tritables.build_comb_table``'s attribute corners)."""
+    return KERNEL if nf == CORNER_COLS else f"{KERNEL}_F{nf}"
 
 
 def _check(tbl, local_tri):
@@ -71,7 +79,7 @@ def gather_tri_rows(tbl, local_tri):
     t, nf = local_tri.shape[0], tbl.shape[1]
     out = torch.empty((t, 3 * nf), dtype=torch.int32, device=dev)
     if out.numel():
-        _build.launch(KERNEL, "ash_gather_tri_rows", dev, tbl.data_ptr(),
+        _build.launch(launch_name(nf), "ash_gather_tri_rows", dev, tbl.data_ptr(),
                       local_tri.data_ptr(), out.data_ptr(), t, nf)
     return out
 

@@ -14,6 +14,10 @@ Row layout, (N, 128) int32, one row per setup slot:
 Phase V of the raster kernel reads cols 0-5 and 46 of the sorted tables;
 phase D reads cols 0-47 of a winner's row straight from the unsorted table,
 whose row index is the triangle id.
+
+``build_comb_table`` assembles the whole table from a ``TriangleSetup``
+(the non-meshlet fused pipeline); the meshlet pipeline's setup kernel K1
+writes the main rows itself and ``comb_rows`` only the clip tail's.
 """
 
 from __future__ import annotations
@@ -21,10 +25,44 @@ from __future__ import annotations
 import torch
 
 from .. import specmath as sm
+from ..scene import MESHLET_TRIS, MESHLET_VERTS
+from . import meshlet_gather
 
 COMB_FIELDS = 46
 TBL_COLS = 128
 ID_COL = 46
+
+
+_COMB_SETUP_FIELDS = (
+    "x0 y0 x1 y1 x2 y2 zq0 zq1 zq2 inv_area2 iw0 iw1 iw2 mat".split())
+
+
+def build_comb_table(su, attrs, cfg, local_tri=None):
+    """(S, 128) int32 comb table of a ``TriangleSetup`` of S rows (row id =
+    setup row).  attrs: (VA, 12) float32 combined attribute rows.
+
+    Without ``local_tri`` each corner's row is gathered by ``su.v0/v1/v2``.
+    With ``local_tri`` (T, 3) meshlet-local ids, the T main triangles'
+    corners come from kernel K5 at F = 12 on the (T // 128) * 128 meshlet
+    vertex rows, and only the clip tail (rows T onward) is gathered by
+    vertex id.  K5 gives the corners in their original order, and the
+    setup rewinds front faces (0, 2, 1), so its corner 2 is setup corner 1
+    and the other way round.  Dead rows differ between the branches in the
+    attribute columns (zeroed vertex ids gather vertex 0's row; K5 gathers
+    the triangle's own corners), as they do in the reference."""
+    if local_tri is not None:
+        t_main = local_tri.shape[0]
+        v_main = (t_main // MESHLET_TRIS) * MESHLET_VERTS
+        a3 = sm.bitcast_f32(meshlet_gather.gather_tri_rows(
+            sm.bitcast_i32(attrs[:v_main]), local_tri))  # corner k: 12k:12k+12
+        tail = [attrs[v[t_main:].long()] for v in (su.v0, su.v1, su.v2)]
+        a_v0 = torch.cat([a3[:, 0:12], tail[0]])
+        a_v1 = torch.cat([a3[:, 24:36], tail[1]])
+        a_v2 = torch.cat([a3[:, 12:24], tail[2]])
+    else:
+        a_v0, a_v1, a_v2 = (attrs[v.long()] for v in (su.v0, su.v1, su.v2))
+    return comb_rows({k: getattr(su, k) for k in _COMB_SETUP_FIELDS},
+                     a_v0, a_v1, a_v2, cfg)
 
 
 def comb_rows(f: dict, a_v0, a_v1, a_v2, cfg, id_base: int = 0):

@@ -26,6 +26,12 @@ Stages, each a plain call on tensors of one device:
 
 Stages 1-5 (the front) depend only on the scene and the model + MVP
 matrices, so ``FrontCache`` reuses them while those bytes stay the same.
+
+The non-meshlet fused fallback (``render_frame_fused``, plain-packed
+scenes) replaces stages 1-3 with the classic setup (``transform_vertices``,
+``geometry_device``), the streaming keys of its setup rows and
+``tritables.build_comb_table`` (``render_front_fallback``), then runs
+stages 4-7 as above.
 """
 
 from __future__ import annotations
@@ -175,6 +181,52 @@ def render_front(statics, state, model_mats, mvp_mats, on_stage=_no_stage):
     return rmeta, tbl_sorted, tbl_ext, comb, {**gstats, **sstats}
 
 
+def render_front_fallback(statics, state, model_mats, mvp_mats,
+                          on_stage=_no_stage):
+    """The non-meshlet fallback's front: transform, ``geometry_device``
+    (S = T + 7 * clip_budget setup rows), their streaming keys,
+    ``build_comb_table``, sort + K2 and ``expand_table``.  Returns (rmeta,
+    tbl_sorted, tbl_ext, comb, stats), as ``render_front`` does."""
+    cfg = statics.cfg
+    clip, attrs = geometry.transform_vertices(
+        state.positions, state.vert_obj, state.normals, state.colors,
+        state.uvs, model_mats, mvp_mats,
+    )
+    on_stage("transform")
+    su, attrs_full, gstats = geometry.geometry_device(
+        clip, attrs, state.tri_v, state.tri_mat, cfg,
+        statics.settings.clip_budget)
+    on_stage("geometry")
+    keys = binsort.stream_keys(su.valid, su.x0, su.y0, su.x1, su.y1, su.x2,
+                               su.y2, cfg)
+    comb = tritables.build_comb_table(su, attrs_full, cfg)
+    on_stage("keys_comb")
+    order, bounds = binsort.sort_and_bounds(keys, cfg)
+    on_stage("sort_bounds_K2")
+    rmeta, tbl_sorted, tbl_ext, sstats = expand_table(statics, comb, order,
+                                                      bounds)
+    on_stage("expand_meta_gather")
+    return rmeta, tbl_sorted, tbl_ext, comb, {**gstats, **sstats}
+
+
+def render_frame_fused(statics: FrameStatics, state, model_mats, mvp_mats,
+                       camera_pos, on_stage=_no_stage):
+    """One fused-pipeline frame of a plain-packed ``state`` (``state.ltT``
+    is None) on its device: the reference's non-meshlet fallback
+    (``render_frame_fused`` without ``local_tri``).  The front is
+    ``render_front_fallback``; raster (K3, or K3F) and shade are the staged
+    pipeline's.  Returns (rgba8 (H, W, 4) uint8, aux with vis_d16, vis_tri
+    and the geometry and sort counters).  ``on_stage`` as in
+    ``render_front``."""
+    if state.ltT is not None:
+        raise ValueError("render_frame_fused takes a plain-packed scene; a "
+                         "meshlet-packed one goes to render_frame_fused_staged")
+    front = render_front_fallback(statics, state, model_mats, mvp_mats,
+                                  on_stage)
+    return _raster_shade(statics, state, front[:4], camera_pos, front[4],
+                         on_stage)
+
+
 def surface_mode(statics, materials, atlas, light):
     """The scene's shading configuration (M, T, has_materials, has_atlas,
     has_light), as the reference's ``shade_mode_for`` derives it.  The
@@ -280,7 +332,15 @@ def render_frame_fused_staged(statics: FrameStatics, state, model_mats,
         front = render_front(statics, state, model_mats, mvp_mats, on_stage)
         if use_cache:
             front_cache.key, front_cache.value = front_key, front
-    rmeta, tbl_sorted, tbl_ext, comb, stats = front
+    return _raster_shade(statics, state, front[:4], camera_pos, front[4],
+                         on_stage)
+
+
+def _raster_shade(statics, state, tables, camera_pos, stats, on_stage):
+    """Stages 6-7 of a fused frame: K3 (or K3F when ``shade_mode_for``
+    gives a mode) on the front's ``tables`` (rmeta, tbl_sorted, tbl_ext,
+    comb), then shade + pack.  Returns (rgba8, aux with vis_d16, vis_tri
+    and ``stats``)."""
     atlas = state.atlas if statics.has_atlas else None
     light = state.light if statics.has_light else None
     mode = surface_mode(statics, state.materials, atlas, light)
@@ -288,8 +348,7 @@ def render_frame_fused_staged(statics: FrameStatics, state, model_mats,
                                      camera_pos)
     smode = shade_mode_for(statics, state.materials, atlas, light)
     vis_d, vis_t, planes = fused_kernel.rasterize_distribute(
-        rmeta, tbl_sorted, tbl_ext, comb, statics.cfg, smode,
-        None if smode is None else consts,
+        *tables, statics.cfg, smode, None if smode is None else consts,
     )
     on_stage("raster_K3")
     rgba8 = _shade_from_planes(statics, planes, mode, consts,

@@ -13,8 +13,9 @@ explicit torch device.
 kernel K4) or "auto", the reference's rule: fused from 4096 triangles,
 classic below.
 
-Per frame the host composes the per-object MVP matrices (numpy, the same
-bits the oracle uses), and the pipeline runs on the device.
+Per frame the host composes the per-object MVP matrices with the oracle's
+``compose_mvp`` (numpy, so both start from the same bits), and the
+pipeline runs on the device.
 """
 
 from __future__ import annotations
@@ -32,19 +33,13 @@ from .config import RendererSettings, derive_raster_config
 from .profiling import FrameStats
 from .scene import Scene
 from .ops import raster_visibility
+from .oracle.raster_cpu import compose_mvp
 from .pipeline import (FrameStatics, FrontCache, _no_stage, render_frame,
                        render_frame_fused_staged)
 from .present import FrameRing
 
 F32 = np.float32
 AUTO_FUSED_TRIS = 4096  # "auto" takes the fused pipeline from this many
-
-
-def compose_mvp(model_mats: np.ndarray, view: np.ndarray, proj: np.ndarray):
-    """Per-object MVP = P @ V @ M in float32 on the host: the same numpy
-    expression as the reference oracle's, so frames start from its bits."""
-    vp = (np.asarray(proj, dtype=F32) @ np.asarray(view, dtype=F32)).astype(F32)
-    return np.einsum("ij,ojk->oik", vp, np.asarray(model_mats, F32)).astype(F32)
 
 
 def frame_statics(settings: RendererSettings, n_tris: int, has_atlas: bool,

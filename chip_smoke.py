@@ -76,7 +76,31 @@ lines and seconds; any failure raises and the exit code is non-zero):
    overflow; CUDA-event frame ms of the classic pipeline: the reference
    scene and config2 (800x600) through ``Renderer``, each also against
    "fused" (front cache off) in turns, config4 subdiv 8 static "classic"
-   vs "fused" in turns, and the classic stage ms.
+   vs "fused" in turns, and the classic stage ms;
+14. the non-meshlet fused fallback (``pipeline.render_frame_fused`` on
+   plain-packed uploads), launch counts zeroed before it: bench.py's
+   parity-gate scene (the same seed and shapes, 256x192, K3F) equals the
+   port's numpy oracle and the same function on CPU tensors; the five
+   pinned golden scenes and config4 at subdiv 5 and 8 under "auto" (K3)
+   and "on" (K3F) equal their sha256; K2, K3 and K3F must have launched,
+   K1 and K5 not; then K3 / K3F against their plain versions on the
+   fallback's own tables (gate scene, subdiv 8 static, subdiv 5 fly-by),
+   and the subdiv-8 static uncached frame ms (median, mean, max) beside
+   ``render_frame_fused_staged``'s, in turns, with the fallback's stage
+   ms;
+15. ``tritables.build_comb_table`` through K5 at F = 12 on config4 subdiv
+   8 (meshlet-packed), launch counts zeroed before it: its comb equals the
+   row-gather branch's on every valid row and on the setup and id columns
+   of every row, and K1's comb on the real rows of alive meshlets; K5 at
+   this call site timed beside its plain version, ``tbl[idx]`` and its
+   bound;
+16. the oracle, debug and profiling layer: ``debugging.compare_with_oracle``
+   pixel-exact on CUDA Renderers of the reference scene (classic), config3
+   (fused, K3F) and config4 subdiv 5 (fused, textured), with the oracle's
+   seconds; ``validate_frame`` finds the subdiv-8 frames (staged and
+   fallback) clean; ``profiling.trace`` writes a Chrome trace of one
+   fallback frame under ``build/traces/``; a CUDA ``profiling.Timer``
+   reads each stage of that frame.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -297,7 +321,7 @@ def front_inputs(r, cam):
     import torch
 
     from ash_renderer_tpu_torch.ops import setup_kernel
-    from ash_renderer_tpu_torch.renderer import compose_mvp
+    from ash_renderer_tpu_torch.oracle.raster_cpu import compose_mvp
 
     st = r.settings
     mm = np.ascontiguousarray(r.scene.model_matrices(), np.float32)
@@ -805,6 +829,373 @@ def frames_ms(r, cams):
     return per[len(per) // 2], sum(per) / len(per), per[-1]
 
 
+class Fallback:
+    """``pipeline.render_frame_fused`` (the non-meshlet fused fallback) on
+    a plain-packed upload of ``scene``, behind the ``Renderer``'s frame
+    interface (``render_frame(camera, on_stage=)``, ``read_frame``), so
+    ``frames_ms``, ``turns`` and ``stage_ms`` time it as they time a
+    ``Renderer``.  The settings take the fused pipeline's statics."""
+
+    def __init__(self, scene, settings, dev):
+        import dataclasses
+
+        import torch
+
+        from ash_renderer_tpu_torch import state
+        from ash_renderer_tpu_torch.renderer import frame_statics
+
+        self.scene = scene
+        self.device = torch.device(dev)
+        self.settings = dataclasses.replace(settings, pipeline="fused")
+        self.packed = scene.pack()
+        self.state = state.upload(self.packed, scene.materials, scene.atlas,
+                                  scene.light, self.device)
+        self.statics = frame_statics(
+            self.settings, self.packed.tri_v.shape[0],
+            self.state.atlas is not None, self.state.light is not None)
+        self.cfg = self.statics.cfg
+
+    def inputs(self, cam):
+        """(model, MVP, camera position) tensors of camera ``cam``."""
+        import numpy as np
+        import torch
+
+        from ash_renderer_tpu_torch.oracle.raster_cpu import compose_mvp
+
+        st = self.settings
+        mm = np.ascontiguousarray(self.scene.model_matrices(), np.float32)
+        mvp = compose_mvp(mm, cam.view_matrix(), cam.projection_matrix(
+            st.render_width / st.render_height))
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in (mm, mvp, cam.position.astype(np.float32)))
+
+    def render_frame(self, cam, on_stage=None):
+        from ash_renderer_tpu_torch import pipeline
+
+        on_stage = on_stage or pipeline._no_stage
+        mm_t, mvp_t, cam_t = self.inputs(cam)
+        on_stage("mvp_upload")
+        return pipeline.render_frame_fused(self.statics, self.state, mm_t,
+                                           mvp_t, cam_t, on_stage=on_stage)
+
+    def tables(self, cam):
+        """(front tables (rmeta, tbl_sorted, tbl_ext, comb), shade mode,
+        consts, counters) of camera ``cam``: what K3 or K3F sees."""
+        from ash_renderer_tpu_torch import pipeline
+        from ash_renderer_tpu_torch.ops import shade
+
+        s, statics = self.state, self.statics
+        mm_t, mvp_t, cam_t = self.inputs(cam)
+        *tables, stats = pipeline.render_front_fallback(statics, s, mm_t, mvp_t)
+        atlas = s.atlas if statics.has_atlas else None
+        light = s.light if statics.has_light else None
+        mode = pipeline.surface_mode(statics, s.materials, atlas, light)
+        smode = pipeline.shade_mode_for(statics, s.materials, atlas, light)
+        consts = shade.pack_shade_consts(mode, s.materials, atlas, light, cam_t)
+        return tables, smode, None if smode is None else consts, stats
+
+    @staticmethod
+    def read_frame(rgba8):
+        return rgba8.cpu().numpy()
+
+
+def gate_scene():
+    """bench.py's parity-gate scene (``parity_gate``: the same seed and
+    shapes, built with the port's scene module): 160 random triangles over
+    200 vertices at 256x192, one default material, no texture, no light,
+    so "auto" takes phase F (K3F)."""
+    import numpy as np
+
+    from ash_renderer_tpu_torch.config import RendererSettings
+    from ash_renderer_tpu_torch.scene import Mesh, Scene, SceneObject
+
+    rng = np.random.default_rng(5)
+    nv, nt = 200, 160
+    pos = rng.uniform(-2, 2, (nv, 3)).astype(np.float32)
+    pos[:, 2] += 3.5
+    sc = Scene()
+    sc.add_object(SceneObject(mesh=sc.add_mesh(Mesh(
+        positions=pos, indices=rng.integers(0, nv, (nt, 3)).astype(np.int32),
+        colors=rng.uniform(0, 1, (nv, 4)).astype(np.float32)))))
+    return sc, RendererSettings(width=256, height=192)
+
+
+def oracle_frame(r, cam):
+    """(the port's numpy oracle frame of ``r``'s packed scene for camera
+    ``cam``, seconds)."""
+    import numpy as np
+
+    from ash_renderer_tpu_torch.debugging import numpy_pack
+    from ash_renderer_tpu_torch.oracle import render_oracle
+
+    st, s = r.settings, r.state
+    t0 = time.perf_counter()
+    o = render_oracle(
+        r.packed, np.asarray(r.scene.model_matrices(), np.float32),
+        cam.view_matrix(),
+        cam.projection_matrix(st.render_width / st.render_height), st,
+        materials=numpy_pack(s.materials),
+        atlas=None if s.atlas is None else numpy_pack(s.atlas),
+        light=None if s.light is None else numpy_pack(s.light),
+        camera_pos=cam.position.astype(np.float32), cfg=r.cfg)
+    return o, time.perf_counter() - t0
+
+
+def compare_raster(tables, cfg, smode, consts, label: str, errs: dict):
+    """K3 (``smode`` None) or K3F against its plain version on one set of
+    front tables, by ``compare_kernels``' rule: vis_d and vis_t exactly,
+    the plane rows of covered pixels, and the material / id / pad rows
+    (K3F: the rows after its texture mask) everywhere.  Folds the max
+    |kernel - plain| into ``errs``; returns the kernel's vis_t."""
+    import torch
+
+    from ash_renderer_tpu_torch.ops import fused_kernel as fk
+
+    vd, vt, pl = fk.rasterize_distribute(*tables, cfg, smode, consts)
+    vd_p, vt_p, pl_p = fk.rasterize_distribute_plain(*tables, cfg, smode, consts)
+    valid = (pl_p[:, fk.VIS_ROW, :] >= 0)[:, None, :]
+    exact = 16 if smode is None else fk.F_TEXMASK + 1
+    err = _max_err([
+        (vd, vd_p), (vt, vt_p),
+        (torch.where(valid, pl, 0), torch.where(valid, pl_p, 0)),
+        (pl[:, exact:], pl_p[:, exact:]),
+    ])
+    k = "K3" if smode is None else "K3F"
+    require(err == 0, f"{k} differs from its plain version ({label}): {err} "
+            f"({int((vt != vt_p).sum())} winner ids differ)")
+    errs[k] = max(errs.get(k, 0), err)
+    say(f"{label}: {k} bit-equal to plain on the fallback's tables; covered "
+        f"px {int((vt >= 0).sum())}")
+    return vt
+
+
+def comb_k5_check(r, cam, errs: dict, timed: bool = False):
+    """``tritables.build_comb_table`` through K5 at F = 12 on renderer
+    ``r``'s meshlet-packed scene: ``geometry_device(..., local_tri=)`` (K5
+    at F = 8), then ``build_comb_table(..., local_tri=)`` (K5 at F = 12),
+    with the launch counts zeroed just before and read just after.  Its
+    comb must equal the row-gather branch's on every valid row and on
+    every row in the setup and id columns (dead rows' attribute columns
+    differ by design: zeroed vertex ids gather vertex 0), and K1's comb
+    on the real rows of alive meshlets (dead meshlets zero-filled).  Then
+    K5 at this call site against its plain version and ``tbl[idx]``.
+    Returns (launch counts, {"K5_F12": (ms, plain ms, library ms,
+    (bound ms, by))} with ``timed``)."""
+    import torch
+
+    from ash_renderer_tpu_torch import _build
+    from ash_renderer_tpu_torch import specmath as sm
+    from ash_renderer_tpu_torch.ops import (geometry, meshlet_gather,
+                                            setup_kernel, tritables)
+
+    s, cfg = r.state, r.cfg
+    mm_t, mvp_t, tblT = front_inputs(r, cam)
+    lt = torch.from_numpy(r.packed.local_tri).to(r.device)
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    clip, attrs = geometry.transform_vertices(
+        s.positions, s.vert_obj, s.normals, s.colors, s.uvs, mm_t, mvp_t)
+    su, attrs_full, _ = geometry.geometry_device(
+        clip, attrs, s.tri_v, s.tri_mat, cfg, r.settings.clip_budget,
+        local_tri=lt)
+    comb = tritables.build_comb_table(su, attrs_full, cfg, local_tri=lt)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    say(json.dumps(counts, sort_keys=True))
+    for k in ("K5_gather_rows", meshlet_gather.launch_name(12)):
+        require(counts.get(k, 0) > 0, f"{k} was not launched in phase 15")
+
+    plain = tritables.build_comb_table(su, attrs_full, cfg)
+    valid = su.valid
+    require(int(valid.sum()) > 0, "phase 15: no valid row")
+    err = _max_err([(comb[valid], plain[valid]), (comb[:, :10], plain[:, :10]),
+                    (comb[:, 46:], plain[:, 46:])])
+    require(err == 0, f"build_comb_table: the K5 branch differs from the "
+            f"row-gather branch: {err}")
+    t = lt.shape[0]
+    comb_k1, _, flags, _, _ = setup_kernel.triangle_setup(
+        tblT, s.ltT, s.matT, cfg,
+        tail_rows=r.settings.clip_budget * geometry.MAX_CLIP_TRIS)
+    alive = ((flags.reshape(-1, 128) & 3) != 0).any(1).repeat_interleave(128)
+    real = (s.tri_v[:, 0] >= 0) & alive
+    err1 = _max_err([(comb_k1[:t][real], comb[:t][real])])
+    require(err1 == 0, f"build_comb_table: K1's comb differs on alive rows: {err1}")
+    require(not bool(comb_k1[:t][~alive].any()), "K1: a dead meshlet not zero-filled")
+    say(f"build_comb_table (K5 at F = 12): {comb.shape[0]} rows, {int(valid.sum())} "
+        f"valid; equal to the row-gather branch on valid rows and the setup and "
+        f"id columns, and to K1's comb on {int(real.sum())} real rows of "
+        f"{int(alive.sum()) // 128} alive meshlets")
+    del plain, comb_k1
+
+    v_main = (t // 128) * 128
+    tbl = sm.bitcast_i32(attrs_full[:v_main])
+    reps = TIMING_REPS["K5"] if timed else (0, 0)
+    g, k_ms = run_timed(lambda: meshlet_gather.gather_tri_rows(tbl, lt), reps[0])
+    g_p, p_ms = run_timed(lambda: meshlet_gather.gather_tri_rows_plain(tbl, lt),
+                          reps[1])
+    idx = torch.arange(t, device=lt.device)[:, None] // 128 * 128 + lt.long()
+    g_lib, lib_ms = run_timed(lambda: tbl[idx].reshape(t, -1), reps[1])
+    e5 = _max_err([(g, g_p), (g, g_lib)])
+    require(e5 == 0, f"K5 at F = 12 differs from its plain version: {e5}")
+    errs["K5_F12"] = max(errs.get("K5_F12", 0), e5)
+    n5 = t * 3 * tbl.shape[1]
+    timing = {"K5_F12": (k_ms, p_ms, lib_ms, bound_ms(
+        (tbl.numel() + lt.numel() + n5) * 4, n5))} if timed else None
+    say(f"K5 at F = 12 (build_comb_table's call site, {tuple(tbl.shape)} table): "
+        "bit-equal to plain and tbl[idx]")
+    return counts, timing
+
+
+def fallback_checks(dev, card, errs: dict, head5, head8):
+    """Phase 14: the non-meshlet fused fallback (``render_frame_fused``) on
+    plain-packed uploads.  With the launch counts zeroed just before and
+    read just after: bench.py's gate scene, the five pinned golden scenes
+    and the config4 frames of ``head5`` and ``head8`` ((scene, settings,
+    camera, golden)) under "auto" and "on".  Then: the gate frame equals
+    the port's oracle and the CPU frame; every golden holds; K3 / K3F
+    equal their plain versions on the fallback's own tables; the head8
+    frame's ms beside the staged route's, in turns.
+    Returns (launch counts, the head8 "auto" frame's aux, its Fallback)."""
+    import dataclasses
+
+    import torch
+
+    from ash_renderer_tpu_torch import _build
+    from ash_renderer_tpu_torch.benchmarks import GOLDEN_SCENES, GOLDEN_SHA
+    from ash_renderer_tpu_torch.camera import Camera
+    from ash_renderer_tpu_torch.renderer import Renderer
+
+    scene_g, st_g = gate_scene()
+    fbg = Fallback(scene_g, st_g, dev)
+    fb_gold = {name: Fallback(*build(), dev) for name, build in GOLDEN_SCENES.items()}
+    heads = []
+    for sub, (scene, st, cam, g) in (("5", head5), ("8", head8)):
+        for knob in ("auto", "on"):
+            heads.append((f"subdiv-{sub} {knob}", Fallback(
+                scene, dataclasses.replace(st, fused_surface_shade=knob), dev),
+                cam, g))
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    fgate, aux_g = fbg.render_frame(Camera())
+    fgate = fbg.read_frame(fgate)
+    f_gold = {name: fb.read_frame(fb.render_frame(Camera())[0])
+              for name, fb in fb_gold.items()}
+    f_head = {}
+    for label, fb, cam, _ in heads:
+        f, aux = fb.render_frame(cam)
+        f_head[label] = (fb.read_frame(f), aux)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    say(json.dumps(counts, sort_keys=True))
+    for k in ("K2_run_bounds", "K3_raster", "K3F_raster_shade"):
+        require(counts.get(k, 0) > 0, f"{k} was not launched in phase 14")
+    for k in ("K1_setup", "K5_gather_rows"):
+        require(counts.get(k, 0) == 0, f"{k} ran on the fallback route")
+
+    covered = int((aux_g["vis_tri"] >= 0).sum())
+    require(covered > 0, "gate scene: no covered pixel")
+    o_gate, o_s = oracle_frame(fbg, Camera())
+    require((fgate == o_gate["rgba8"]).all(),
+            "gate scene: card frame != the port's oracle frame")
+    fcpu = Fallback(scene_g, st_g, "cpu")
+    require((fgate == fcpu.read_frame(fcpu.render_frame(Camera())[0])).all(),
+            "gate scene: card frame != CPU frame")
+    say(f"bench.py gate scene 256x192 (160 tris, fallback, K3F): card frame == "
+        f"port oracle == CPU frame, covered {covered} px (oracle {o_s:.2f} s)")
+    for name, f in f_gold.items():
+        require(sha(f) == GOLDEN_SHA[name], f"fallback {name}: frame != golden")
+        say(f"{name} {f.shape[1]}x{f.shape[0]} (fallback): golden sha256 EXACT")
+    for label, _, _, g in heads:
+        f, aux = f_head[label]
+        require(sha(f) == g["sha256"], f"fallback {label}: frame != golden")
+        say(f"fallback {label} ({int(aux['n_valid'])} valid setup rows, "
+            f"{int(aux['live_rows'])} live rows): golden sha256 EXACT")
+    aux8 = f_head["subdiv-8 auto"][1]
+    del f_gold, f_head, fb_gold, fcpu
+
+    # K3 / K3F on the fallback's own tables, outside the counted run
+    fly = flyby_camera(FLYBY_FRAME, N_FRAMES)
+    fbs = {label: fb for label, fb, _, _ in heads}
+    for label, fb, cam in (("gate scene", fbg, Camera()),
+                           ("subdiv 8 auto, static", fbs["subdiv-8 auto"], head8[2]),
+                           ("subdiv 8 on, static", fbs["subdiv-8 on"], head8[2]),
+                           ("subdiv 5 auto, fly-by", fbs["subdiv-5 auto"], fly),
+                           ("subdiv 5 on, fly-by", fbs["subdiv-5 on"], fly)):
+        tables, smode, consts, stats = fb.tables(cam)
+        compare_raster(tables, fb.cfg, smode, consts, f"fallback {label}", errs)
+        if "fly-by" in label:
+            require(int(stats["n_clipped"]) > 0 and int(stats["wide_pairs_n"]) > 0,
+                    f"fallback {label}: the frame neither clips nor expands "
+                    "wide pairs")
+        del tables
+    fb8 = fbs["subdiv-8 auto"]
+    del heads, fbs
+
+    # frame ms beside the staged route's, in turns
+    scene8, st8, cam8, _ = head8
+    r8u = Renderer(scene8, dataclasses.replace(st8, front_coherence=False),
+                   device=dev)
+    legs = (("staged", r8u), ("fallback", fb8))
+    for name, r in legs + legs[::-1]:
+        med, mean, worst = frames_ms(r, [cam8] * N_FRAMES)
+        say(f"[{card}] frame ms, subdiv 8 static uncached auto, {name}: median "
+            f"{med:.3f}, mean {mean:.3f}, max {worst:.3f} ({N_FRAMES} frames)")
+    del r8u
+    stage_ms(fb8, cam8)  # warm-up
+    say(f"[{card}] stage ms (subdiv 8 fallback, static): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage_ms(fb8, cam8).items()))
+    return counts, aux8, fb8
+
+
+def debug_checks(dev, card, oracle_cases, auxes, fb, cam) -> None:
+    """Phase 16: ``debugging.compare_with_oracle`` is pixel-exact on each
+    (label, Renderer, camera) of ``oracle_cases``; ``validate_frame`` on
+    each (label, aux) of ``auxes`` finds the frame clean; ``profiling.trace``
+    around one frame of the Fallback ``fb`` writes a trace under build/;
+    a ``profiling.Timer`` on ``dev`` reads each stage of that frame > 0."""
+    from ash_renderer_tpu_torch import debugging, pipeline, profiling
+
+    for label, r, c in oracle_cases:
+        t0 = time.perf_counter()
+        found = [str(f) for f in debugging.compare_with_oracle(r, c)]
+        require(found == ["[INFO][oracle] pixel-exact match"],
+                f"{label}: compare_with_oracle: {found}")
+        say(f"{label}: compare_with_oracle pixel-exact ({r.cfg.width}x"
+            f"{r.cfg.height}, {r.packed.num_triangles} tris; "
+            f"{time.perf_counter() - t0:.2f} s for the numpy oracle's frame "
+            "and one card frame)")
+    for label, aux in auxes:
+        found = [str(f) for f in debugging.validate_frame(aux)]
+        require(found == ["[INFO][ok] frame clean"],
+                f"validate_frame ({label}): {found}")
+    say("validate_frame on the headline aux (" + ", ".join(
+        label for label, _ in auxes) + "): frame clean")
+
+    path = os.path.join(ROOT, "build", "traces", "fallback_frame.json")
+    with profiling.trace(path, device=dev) as prof:
+        fb.render_frame(cam)
+    require(os.path.getsize(path) > 0, f"empty trace {path}")
+    ops = prof.key_averages()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0)) for e in ops)
+    say(f"profiling.trace: {os.path.relpath(path, ROOT)} ({os.path.getsize(path)} "
+        f"bytes); device self time {dev_us / 1e3:.3f} ms over {len(ops)} ops")
+
+    timer = profiling.Timer(device=dev)
+    mm_t, mvp_t, cam_t = fb.inputs(cam)
+    with timer.scope("front"):
+        *tables, stats = pipeline.render_front_fallback(fb.statics, fb.state,
+                                                        mm_t, mvp_t)
+    with timer.scope("raster_shade"):
+        pipeline._raster_shade(fb.statics, fb.state, tables, cam_t, stats,
+                               pipeline._no_stage)
+    times = timer.times
+    require(set(times) == {"front", "raster_shade"}
+            and all(v > 0 for v in times.values()), f"profiling.Timer: {times}")
+    say(f"[{card}] profiling.Timer on {dev}, fallback frame: " + ", ".join(
+        f"{k} {v * 1e3:.3f} ms" for k, v in times.items()))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1107,6 +1498,28 @@ def main() -> int:
         say(f"[{card}] stage ms (subdiv 8 classic, static): " + ", ".join(
             f"{k} {v:.3f}" for k, v in stage_ms(r8c, cams8[0]).items()))
         del r8c, r8f
+
+    with Phase("14 the non-meshlet fused fallback (render_frame_fused)"):
+        counts_fb, aux_fb8, fb8 = fallback_checks(
+            dev, card, errs, (scene5, st5, cams5[0], g5),
+            (scene8, st8, cams8[0], g8))
+
+    with Phase("15 build_comb_table through K5 at F = 12 (config4 subdiv 8)"):
+        counts_k5, timing_k5 = comb_k5_check(r8, cams8[0], errs, timed=True)
+        timing.update(timing_k5)
+        say_timing(card, timing_k5, " (build_comb_table, subdiv 8)")
+        torch.cuda.synchronize()
+
+    with Phase("16 the oracle, debug and profiling layer"):
+        from ash_renderer_tpu_torch.scene import reference_two_triangle_scene
+
+        debug_checks(dev, card, (
+            ("reference 800x600 (classic)",
+             Renderer(reference_two_triangle_scene(), device=dev), Camera()),
+            ("config3 800x600 (fused, K3F)", r3, cams3[0]),
+            ("config4 subdiv 5 (fused, textured, K3)", r5, cams5[0])),
+            (("staged", aux8), ("fallback", aux_fb8)), fb8, cams8[0])
+        del fb8
         say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     meta = {
@@ -1122,6 +1535,8 @@ def main() -> int:
                "ash_renderer_tpu/ops/raster_pallas.py:203", counts_c),
         "K5": ("K5_gather_rows", "ash_renderer_tpu_torch/csrc/gather.cu",
                "ash_renderer_tpu/ops/meshlet_gather.py:97", counts_c),
+        "K5_F12": ("K5_gather_rows_F12", "ash_renderer_tpu_torch/csrc/gather.cu",
+                   "ash_renderer_tpu/ops/meshlet_gather.py:97", counts_k5),
     }
     kernels = []
     for k, (name, src, rep, n) in meta.items():

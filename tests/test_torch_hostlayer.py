@@ -265,10 +265,18 @@ def _port_files():
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    """AST scan of every module of the port, chip_smoke.py and the frame
-    profiler: no import of jax, jaxlib or ash_renderer_tpu (or a submodule)."""
+    """AST scan of every module of the port (the oracle and the debug layer
+    included), chip_smoke.py and the frame profiler: no import of jax,
+    jaxlib or ash_renderer_tpu (or a submodule)."""
     files = _port_files()
     assert len(files) > 20
+    rel = {os.path.relpath(p, ROOT) for p in files}
+    assert {os.path.join("ash_renderer_tpu_torch", f) for f in (
+        "debugging.py", "profiling.py", os.path.join("oracle", "__init__.py"),
+        os.path.join("oracle", "raster_cpu.py"),
+        os.path.join("oracle", "scalar_ref.py"),
+        os.path.join("oracle", "shade_np.py"),
+        os.path.join("oracle", "specmath_np.py"))} <= rel
     bad = []
     for path in files:
         for name in _imports(path):

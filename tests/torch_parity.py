@@ -548,3 +548,96 @@ def check_classic_frame_against_jax(name):
     np.testing.assert_array_equal(got, want)
     for k in CLASSIC_STATS:
         assert int(aux[k]) == int(jaux[k]), k
+
+
+# ---------------------------------------------------------------------------
+# The non-meshlet fused fallback: the port's render_frame_fused and the JAX
+# package's render_frame_fused_jit without local_tri
+# ---------------------------------------------------------------------------
+
+FALLBACK_STATS = ("n_valid", "n_clipped", "n_fast", "n_wide", "live_rows")
+
+
+def gate_scene():
+    """bench.py's parity-gate scene (``parity_gate``, the same seed and
+    shapes): 160 random triangles over 200 vertices, one default material,
+    no texture, no light."""
+    rng = np.random.default_rng(5)
+    nv, nt = 200, 160
+    pos = rng.uniform(-2, 2, (nv, 3)).astype(F32)
+    pos[:, 2] += 3.5
+    mesh = Mesh(
+        positions=pos,
+        indices=rng.integers(0, nv, (nt, 3)).astype(np.int32),
+        colors=rng.uniform(0, 1, (nv, 4)).astype(F32),
+    )
+    sc = Scene()
+    sc.add_object(SceneObject(mesh=sc.add_mesh(mesh)))
+    return sc
+
+
+# name -> (scene builder, settings): the gate scene takes phase F (K3F)
+# under "auto", the textured one phase E (K3), near_plane clips
+FALLBACK_SCENES = {
+    "gate": (gate_scene, RendererSettings(width=256, height=192,
+                                          pipeline="fused")),
+    "textured": SCENES["textured"],
+    "near_plane": SCENES["near_plane"],
+}
+
+
+def fallback_case(name):
+    """The case of FALLBACK_SCENES[name] with plain packing and the fused
+    pipeline's 8-row tiles."""
+    build, settings = FALLBACK_SCENES[name]
+    return case_from(build(), settings, meshlets=False)
+
+
+def port_fallback_frame(case, device="cpu"):
+    """The port's render_frame_fused on the case: (rgba8 numpy, aux of
+    numpy values)."""
+    from ash_renderer_tpu_torch import pipeline
+    from ash_renderer_tpu_torch.renderer import frame_statics
+
+    statics = frame_statics(fused(case.settings), case.packed.tri_v.shape[0],
+                            case.scene.atlas is not None,
+                            case.scene.light is not None)
+    assert statics.cfg == case.cfg
+    rgba8, aux = pipeline.render_frame_fused(
+        statics, port_state(case), t(case.mm), t(case.mvp),
+        torch.from_numpy(case.cam.position.astype(np.float32)))
+    return rgba8.numpy(), {k: np.asarray(v) for k, v in aux.items()}
+
+
+def jax_fallback_frame(case):
+    """The JAX package's render_frame_fused_jit on the case without
+    local_tri (its non-meshlet branch; Pallas kernels in interpret mode):
+    (rgba8, aux) as numpy."""
+    from ash_renderer_tpu.pipeline import render_frame_fused_jit
+
+    p = case.ref_packed
+    mats, atlas, light = jax_shading(case)
+    rgba8, aux = render_frame_fused_jit(
+        jax_statics(case),
+        jnp.asarray(p.positions), jnp.asarray(p.vert_obj),
+        jnp.asarray(p.normals), jnp.asarray(p.colors), jnp.asarray(p.uvs),
+        jnp.asarray(p.tri_v), jnp.asarray(p.tri_obj),
+        jnp.asarray(p.obj_material), jnp.asarray(case.mm),
+        jnp.asarray(case.mvp),
+        jnp.asarray(case.ref_cam.position.astype(np.float32)),
+        mats, atlas, light,
+    )
+    return np.asarray(rgba8), {k: np.asarray(v) for k, v in aux.items()}
+
+
+def port_oracle_frame(case):
+    """The port's numpy oracle on the case (the port's packed scene and
+    raster config, the JAX package's numpy shading packs)."""
+    from ash_renderer_tpu_torch.oracle import render_oracle
+
+    mats, atlas, light = jax_shading(case)
+    return render_oracle(
+        case.packed, case.mm, case.view, case.proj, case.settings,
+        materials=mats, atlas=atlas, light=light,
+        camera_pos=case.cam.position.astype(np.float32), cfg=case.cfg,
+    )
