@@ -4,7 +4,8 @@ Each source is compiled at first use into its own shared library with a
 plain C interface, loaded with ``ctypes``:
 
 * the CUDA kernels (``*.cu``) with ``nvcc`` for ``sm_90a``;
-* the host meshlet builder (``meshlets.cpp``) with the host C++ compiler.
+* the host meshlet builder (``meshlets.cpp``) and OBJ parser
+  (``objparse.cpp``) with the host C++ compiler.
 
 Libraries land in ``build/kernels/`` at the repo root, named by a hash of
 the source, the shared headers and the flags, so an edited source or flag
@@ -43,7 +44,7 @@ NVCC_FLAGS = (
 # compiler's report, not the code, so it does not key the library
 PTXAS_REPORT = ("-Xptxas", "-v")
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
-HOST_SOURCES = ("meshlets.cpp",)
+HOST_SOURCES = ("meshlets.cpp", "objparse.cpp")
 HOST_CXX = ("c++", "g++")
 
 launches: collections.Counter = collections.Counter()

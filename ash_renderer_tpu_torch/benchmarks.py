@@ -1,23 +1,72 @@
 """The port's configurations and golden scenes, built identically to their
 builders in ``ash_renderer_tpu/benchmarks.py`` and ``tests/golden_scenes.py``.
-Each configuration returns (scene, settings, [camera]); each golden scene
-(scene, settings), rendered from the default ``Camera()``, and ``GOLDEN_SHA``
-holds the sha256 of its pinned RGBA8 frame (``tests/test_golden_frames.py``).
+Each configuration returns (scene, settings, cameras): one camera for a
+static frame, many for an animation path; ``ALL_CONFIGS`` names them as the
+reference does (``app.main`` takes those names).  Each golden scene returns
+(scene, settings), rendered from the default ``Camera()``, and
+``GOLDEN_SHA`` holds the sha256 of its pinned RGBA8 frame
+(``tests/test_golden_frames.py``).
 """
 
 from __future__ import annotations
 
 import math
+import os
+import tempfile
 
 import numpy as np
 
 from . import mathx
-from .camera import Camera
+from .camera import Camera, orbit_path
 from .config import RendererSettings
-from .models import cube, icosphere, uv_sphere
+from .models import cube, icosphere, terrain, uv_sphere
+from .models.obj import load_obj, save_obj
 from .scene import (DirectionalLight, Material, Scene, SceneObject,
                     reference_two_triangle_scene)
-from .textures import TextureAtlas, checkerboard
+from .textures import TextureAtlas, checkerboard, load_image
+
+# The reference project's texture asset (static/textures/texture.jpg,
+# textures.rs:10-13).  The JAX package reads it from a fixed path in that
+# project's checkout when the file is there (ash_renderer_tpu/benchmarks.py
+# :33-49); the port reads it from the path in $ASH_REFERENCE_TEXTURE.  With
+# no such file both packages use checkerboard(512).
+REFERENCE_TEXTURE_ENV = "ASH_REFERENCE_TEXTURE"
+
+
+def _reference_texture() -> np.ndarray:
+    """The reference's texture asset when present and square with a
+    power-of-two side (mipmappable), else a procedural checkerboard."""
+    path = os.environ.get(REFERENCE_TEXTURE_ENV, "")
+    if path and os.path.exists(path):
+        try:
+            img = load_image(path)
+            if img.shape[0] == img.shape[1] and (
+                img.shape[0] & (img.shape[0] - 1)
+            ) == 0:
+                return img
+        except Exception:
+            pass
+    return checkerboard(512)
+
+
+def config1_textured_obj(obj_path: str | None = None):
+    """Single textured OBJ mesh at 800x600: a uv sphere (9,024 triangles)
+    written once to an OBJ file in the temporary directory and read back
+    through ``load_obj`` when no ``obj_path`` is given."""
+    if obj_path is None:
+        obj_path = os.path.join(tempfile.gettempdir(),
+                                "ash_torch_bench_sphere.obj")
+        if not os.path.exists(obj_path):
+            tmp = f"{obj_path}.{os.getpid()}.tmp"
+            save_obj(tmp, uv_sphere(48, 96))
+            os.replace(tmp, obj_path)
+    mesh = load_obj(obj_path)
+    scene = Scene(materials=[Material(texture_id=0)])
+    scene.atlas = TextureAtlas.build([_reference_texture()])
+    scene.add_object(
+        SceneObject(mesh=scene.add_mesh(mesh), model=mathx.translation([0, 0, 3]))
+    )
+    return scene, RendererSettings(width=800, height=600), [Camera()]
 
 
 def config2_multi_mesh():
@@ -93,6 +142,67 @@ def config4_million_tri(subdiv: int = 8):
         RendererSettings(width=1920, height=1080, max_pairs=1 << 20),
         [Camera()],
     )
+
+
+def config4_terrain(n: int = 708):
+    """The heightfield variant of config 4 (2 * n**2 triangles; n = 708 ->
+    1,002,528) at 1080p: perspective and LOD stress, most triangles
+    subpixel.  Its frame is pinned in ``docs/golden/headline_terrain.json``."""
+    mesh = terrain(n=n)
+    scene = Scene(
+        materials=[Material(texture_id=0)],
+        light=DirectionalLight(direction=(0.3, -0.7, 0.5), ambient=0.25),
+    )
+    scene.atlas = TextureAtlas.build([checkerboard(512)])
+    scene.add_object(SceneObject(mesh=scene.add_mesh(mesh)))
+    cam = Camera(position=np.array([0.0, -2.0, -6.0], np.float32))
+    return (
+        scene,
+        RendererSettings(width=1920, height=1080, max_pairs=1 << 20),
+        [cam],
+    )
+
+
+def config5_flythrough(n_frames: int = 32):
+    """Animated orbit fly-through, mipmapped bilinear textures, 4x SSAA at
+    800x600: a terrain (n = 128) and an icosphere (subdiv 3)."""
+    scene = Scene(
+        materials=[Material(texture_id=0, specular=0.3, shininess=16)],
+        light=DirectionalLight(direction=(0.2, -0.6, 0.75), ambient=0.2),
+    )
+    scene.atlas = TextureAtlas.build([_reference_texture(), checkerboard(256)])
+    ground = terrain(n=128, extent=6.0, height=0.8)
+    scene.add_object(SceneObject(mesh=scene.add_mesh(ground)))
+    ball = icosphere(3, 0.8)
+    scene.add_object(
+        SceneObject(
+            mesh=scene.add_mesh(ball),
+            model=mathx.translation([0, -1.2, 0]),
+            material=0,
+        )
+    )
+    cams = orbit_path(n_frames, radius=5.0, height=-1.5)
+    return scene, RendererSettings(width=800, height=600, supersample=2), cams
+
+
+def reference_scene_config():
+    """The reference's own 2-triangle scene at its startup default."""
+    return (
+        reference_two_triangle_scene(),
+        RendererSettings(width=800, height=600),
+        [Camera()],
+    )
+
+
+ALL_CONFIGS = {
+    "reference": reference_scene_config,
+    "config1_textured_obj": config1_textured_obj,
+    "config2_multi_mesh": config2_multi_mesh,
+    "config3_blinn_phong": config3_blinn_phong,
+    "config4_million_tri": config4_million_tri,
+    "config4_terrain": config4_terrain,
+    "config5_flythrough": config5_flythrough,
+}
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Camera, semantics-parity with the reference (``src/renderer/camera.rs``).
 
-The port's own copy of ``ash_renderer_tpu/camera.py`` (``Camera`` and
-``orbit_path``), expression for expression, so both packages build the same
-view and projection matrix bits.
+The port's own copy of ``ash_renderer_tpu/camera.py`` (``Camera``,
+``CameraController`` and ``orbit_path``), expression for expression, so both
+packages build the same view and projection matrix bits and move a camera
+through the same float32 positions.
 
 * ``Camera`` holds a position and spherical angles (phi off the vertical axis,
   theta counterclockwise about it), with up = -Y (``camera.rs:34``) and
@@ -17,6 +18,11 @@ FOV quirk, preserved deliberately: the reference constructs
 (``camera.rs:35``), so the effective vertical FOV is ``2 * atan(tan(22.5))``
 ~ 58.3 deg, not 45 deg.  ``Camera()`` defaults to the same ``fovy=45.0``
 "radians" for output parity; pass ``fovy=math.radians(d)`` for a sane FOV.
+
+``CameraController`` mirrors ``camera.rs:66-111``: WASD-style movement along
+forward/right at ``speed`` per update, mouse deltas scaled by ``mouse_sens``
+added to theta/phi and then zeroed.  The app shell wires it at
+speed=0.01, sens=0.01 (``app.rs:16``).
 """
 
 from __future__ import annotations
@@ -58,6 +64,40 @@ class Camera:
 
     def projection_matrix(self, aspect_ratio: float) -> np.ndarray:
         return mathx.perspective(aspect_ratio, self.fovy, self.znear, self.zfar)
+
+
+@dataclasses.dataclass
+class CameraController:
+    speed: float = 0.01
+    mouse_sens: float = 0.01
+    mouse_delta_x: float = 0.0
+    mouse_delta_y: float = 0.0
+    forward_pressed: bool = False
+    backward_pressed: bool = False
+    left_pressed: bool = False
+    right_pressed: bool = False
+
+    def process_mouse(self, dx: float, dy: float) -> None:
+        """Accumulate a raw mouse delta (app.rs:20-34)."""
+        self.mouse_delta_x += dx
+        self.mouse_delta_y += dy
+
+    def update_camera(self, camera: Camera) -> None:
+        """One tick of movement + look, mirroring camera.rs:91-110."""
+        forward = camera.forward()
+        right = np.cross(forward, np.array([0.0, -1.0, 0.0], dtype=_F32)).astype(_F32)
+        if self.forward_pressed:
+            camera.position = (camera.position + forward * _F32(self.speed)).astype(_F32)
+        if self.backward_pressed:
+            camera.position = (camera.position - forward * _F32(self.speed)).astype(_F32)
+        if self.left_pressed:
+            camera.position = (camera.position - right * _F32(self.speed)).astype(_F32)
+        if self.right_pressed:
+            camera.position = (camera.position + right * _F32(self.speed)).astype(_F32)
+        camera.theta += self.mouse_delta_x * self.mouse_sens
+        camera.phi += self.mouse_delta_y * self.mouse_sens
+        self.mouse_delta_x = 0.0
+        self.mouse_delta_y = 0.0
 
 
 def orbit_path(

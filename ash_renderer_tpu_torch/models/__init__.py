@@ -1,3 +1,12 @@
-"""Procedural meshes used by the port's configurations."""
+"""Mesh sources: procedural generators and the OBJ and glTF loaders."""
 
-from .procedural import cube, icosphere, uv_sphere  # noqa: F401
+from .obj import load_obj  # noqa: F401
+from .gltf import load_gltf  # noqa: F401
+from .procedural import (  # noqa: F401
+    cube,
+    grid_sheet,
+    icosphere,
+    terrain,
+    tri_soup,
+    uv_sphere,
+)

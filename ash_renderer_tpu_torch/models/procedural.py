@@ -1,5 +1,6 @@
 """Procedural meshes for the port's configurations (host numpy, seeded and
-pure): the same generator as ``ash_renderer_tpu.models.procedural``."""
+pure): the same generators as ``ash_renderer_tpu.models.procedural``,
+expression for expression, so both packages build the same arrays."""
 
 from __future__ import annotations
 
@@ -121,3 +122,89 @@ def icosphere(subdivisions: int = 3, radius: float = 1.0) -> Mesh:
         normals=nrm,
         uvs=np.stack([u, v], axis=-1).astype(F32),
     )
+
+
+def grid_sheet(nx: int, nz: int, extent: float = 2.0, y: float = 0.0) -> Mesh:
+    """Flat grid in the xz plane at height ``y``, normal (0, -1, 0) (up:
+    the camera's up is -y); 2*nx*nz triangles."""
+    xs = np.linspace(-extent, extent, nx + 1)
+    zs = np.linspace(-extent, extent, nz + 1)
+    gx, gz = np.meshgrid(xs, zs, indexing="ij")
+    pos = np.stack([gx, np.full_like(gx, y), gz], axis=-1).reshape(-1, 3)
+    uv = np.stack(
+        [(gx / (2 * extent) + 0.5), (gz / (2 * extent) + 0.5)], axis=-1
+    ).reshape(-1, 2)
+    idx = []
+    stride = nz + 1
+    for i in range(nx):
+        for j in range(nz):
+            a = i * stride + j
+            idx += [[a, a + 1, a + stride], [a + stride, a + 1, a + stride + 1]]
+    return Mesh(
+        positions=pos.astype(F32),
+        indices=np.array(idx, I32),
+        normals=np.tile(np.array([[0, -1, 0]], F32), (len(pos), 1)),
+        uvs=uv.astype(F32),
+    )
+
+
+def terrain(n: int = 512, extent: float = 8.0, height: float = 1.2,
+            seed: int = 0) -> Mesh:
+    """Heightfield terrain: 2*n^2 triangles (n=708 ~ 1M tris), value-noise
+    heights, smooth normals, tiled uvs.  The 1M-triangle benchmark scene
+    (BASELINE config 4)."""
+    rng = np.random.default_rng(seed)
+    # value noise: sum of bilinearly-upsampled random octaves
+    h = np.zeros((n + 1, n + 1), dtype=np.float64)
+    for octave in range(6):
+        k = 4 * (2 ** octave)
+        if k > n:
+            break
+        coarse = rng.standard_normal((k + 1, k + 1))
+        ii = np.linspace(0, k, n + 1)
+        i0 = np.clip(ii.astype(np.int64), 0, k - 1)
+        fi = ii - i0
+        top = coarse[i0] * (1 - fi)[:, None] + coarse[i0 + 1] * fi[:, None]
+        row = top[:, i0] * (1 - fi)[None, :] + top[:, i0 + 1] * fi[None, :]
+        h += row * (0.6 ** octave)
+    h *= height / max(np.abs(h).max(), 1e-9)
+
+    xs = np.linspace(-extent, extent, n + 1)
+    zs = np.linspace(-extent, extent, n + 1)
+    gx, gz = np.meshgrid(xs, zs, indexing="ij")
+    # y is DOWN-ish in the reference's world (camera up = -y): put terrain
+    # below the camera by using positive y for valleys
+    pos = np.stack([gx, -h, gz], axis=-1).reshape(-1, 3).astype(F32)
+    uv = np.stack(
+        [gx / extent * 4.0, gz / extent * 4.0], axis=-1
+    ).reshape(-1, 2).astype(F32)
+
+    idx = np.empty((n, n, 2, 3), dtype=I32)
+    a = np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]
+    idx[..., 0, 0] = a
+    idx[..., 0, 1] = a + 1
+    idx[..., 0, 2] = a + n + 1
+    idx[..., 1, 0] = a + n + 1
+    idx[..., 1, 1] = a + 1
+    idx[..., 1, 2] = a + n + 2
+    mesh = Mesh(
+        positions=pos,
+        indices=idx.reshape(-1, 3),
+        uvs=uv,
+    )
+    return mesh.compute_normals()
+
+
+def tri_soup(n_tris: int, seed: int = 0, span: float = 3.0,
+             z_center: float = 4.0, tri_size: float = 0.08) -> Mesh:
+    """n random small triangles in a box — worst-case unstructured load."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-span, span, (n_tris, 1, 3))
+    centers[..., 2] = centers[..., 2] * 0.5 + z_center
+    offsets = rng.uniform(-tri_size, tri_size, (n_tris, 3, 3))
+    pos = (centers + offsets).reshape(-1, 3).astype(F32)
+    idx = np.arange(3 * n_tris, dtype=I32).reshape(-1, 3)
+    colors = np.repeat(
+        rng.uniform(0.1, 1.0, (n_tris, 1, 4)), 3, axis=1
+    ).reshape(-1, 4).astype(F32)
+    return Mesh(positions=pos, indices=idx, colors=colors)

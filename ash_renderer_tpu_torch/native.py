@@ -1,7 +1,9 @@
-"""ctypes binding of the native meshlet builder (``csrc/meshlets.cpp``).
+"""ctypes bindings of the native host helpers: the meshlet builder
+(``csrc/meshlets.cpp``) and the OBJ parser (``csrc/objparse.cpp``).
 
-The host library is built at first use by ``_build`` with the host C++
-compiler.  Only the four meshlet entry points are bound.
+Each host library is built at first use by ``_build`` with the host C++
+compiler.  The JAX package's PNG encoder (``native/pngwrite.cpp``) has no
+counterpart: ``present.encode_png`` writes PNGs with the standard library.
 """
 
 from __future__ import annotations
@@ -14,11 +16,13 @@ import numpy as np
 from . import _build
 
 SOURCE = "meshlets.cpp"
+OBJ_SOURCE = "objparse.cpp"
 _BOUND = None
+_OBJ_BOUND = None
 
 
 def available() -> bool:
-    """Whether a host C++ compiler can build the library here."""
+    """Whether a host C++ compiler can build the host libraries here."""
     return any(shutil.which(n) for n in _build.HOST_CXX)
 
 
@@ -67,3 +71,45 @@ def build_meshlets(tri_v: np.ndarray, order: np.ndarray, num_vertices: int):
         return vertex_src, local_tri, tri_perm
     finally:
         h.ash_meshlets_free(handle)
+
+
+def obj_lib() -> ctypes.CDLL:
+    """The OBJ parser library, built and bound on first call (raises if it
+    cannot be built)."""
+    global _OBJ_BOUND
+    if _OBJ_BOUND is None:
+        h = _build.load(OBJ_SOURCE)
+        v, i64 = ctypes.c_void_p, ctypes.c_int64
+        h.ash_parse_obj.restype = v
+        h.ash_parse_obj.argtypes = [ctypes.c_char_p]
+        h.ash_obj_counts.restype = None
+        h.ash_obj_counts.argtypes = [v, ctypes.POINTER(i64), ctypes.POINTER(i64)]
+        h.ash_obj_fill.restype = None
+        h.ash_obj_fill.argtypes = [v, v, v, v, v]
+        h.ash_obj_free.restype = None
+        h.ash_obj_free.argtypes = [v]
+        _OBJ_BOUND = h
+    return _OBJ_BOUND
+
+
+def parse_obj(path: str):
+    """Parse an OBJ file in C++ (the same arrays as
+    ``models.obj.load_obj_python``).  Returns (pos (V, 3) f32, uv (V, 2)
+    f32, nrm (V, 3) f32, faces (T, 3) i32), or None when the file cannot
+    be read."""
+    h = obj_lib()
+    handle = h.ash_parse_obj(path.encode())
+    if not handle:
+        return None
+    try:
+        nv, nf = ctypes.c_int64(), ctypes.c_int64()
+        h.ash_obj_counts(handle, ctypes.byref(nv), ctypes.byref(nf))
+        pos = np.empty((nv.value, 3), dtype=np.float32)
+        uv = np.empty((nv.value, 2), dtype=np.float32)
+        nrm = np.empty((nv.value, 3), dtype=np.float32)
+        faces = np.empty((nf.value, 3), dtype=np.int32)
+        h.ash_obj_fill(handle, pos.ctypes.data, uv.ctypes.data,
+                       nrm.ctypes.data, faces.ctypes.data)
+        return pos, uv, nrm, faces
+    finally:
+        h.ash_obj_free(handle)

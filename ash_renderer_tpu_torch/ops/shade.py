@@ -134,26 +134,36 @@ def shade_consts_layout(shade_mode):
 def pack_shade_consts(shade_mode, materials, atlas, light, camera_pos):
     """The shading tables (materials, mip levels, light, camera position) as
     one (n,) int32 tensor on camera_pos's device, floats as their bits, laid
-    out by ``shade_consts_layout``.  Device ops only, so a new camera
-    position per frame costs no host sync."""
+    out by ``shade_consts_layout``: ``pack_shade_consts_f32``'s words.
+    Device ops only, so a new camera position per frame costs no host
+    sync."""
+    return sm.bitcast_i32(pack_shade_consts_f32(
+        shade_mode, materials, atlas, light, camera_pos).detach())
+
+
+def pack_shade_consts_f32(shade_mode, materials, atlas, light, camera_pos):
+    """The words of ``pack_shade_consts`` as a float32 tensor, built with
+    ``torch.cat`` of the float fields themselves, so autograd reaches the
+    material, light and camera tables through it (``diffrender``); the
+    integer fields hold their int32 bits viewed as floats."""
     _, _, has_m, has_a, has_l = shade_mode
 
-    def fb(x):
-        return sm.bitcast_i32(x.to(F32).reshape(-1))
+    def f(x):
+        return x.to(F32).reshape(-1)
 
     def ib(x):
-        return x.to(I32).reshape(-1)
+        return sm.bitcast_f32(x.to(I32).reshape(-1))
 
     parts = []
     if has_m:
-        parts += [fb(materials.base_color), ib(materials.tex_id),
-                  fb(materials.specular), ib(materials.shininess)]
+        parts += [f(materials.base_color), ib(materials.tex_id),
+                  f(materials.specular), ib(materials.shininess)]
     if has_a:
         parts += [ib(atlas.level_offset), ib(atlas.level_w),
                   ib(atlas.level_h), ib(atlas.n_levels)]
     if has_l:
-        parts += [fb(light.direction), fb(light.color), fb(light.ambient)]
-    parts.append(fb(camera_pos))
+        parts += [f(light.direction), f(light.color), f(light.ambient)]
+    parts.append(f(camera_pos))
     return torch.cat(parts)
 
 
@@ -202,7 +212,7 @@ def sample_texture(atlas, tex_id, u, v, level):
     return bilinear(atlas.quads, *tex_address(off, w, h, u, v))
 
 
-def surface_prelight(attr, duv, mat_row, shade_mode, consts):
+def surface_prelight(attr, duv, mat_row, shade_mode, consts, cf=None):
     """The surface half of shading up to the texture tap, from the
     interpolated attributes (..., 12, N), the raw uv derivatives and the
     winner's material row: material base modulation, mip level, tap
@@ -213,12 +223,17 @@ def surface_prelight(attr, duv, mat_row, shade_mode, consts):
     ``consts`` (``pack_shade_consts``) become indexed loads on the same
     clamped indices.
 
+    ``cf``: the same words as floats; by default ``bitcast_f32(consts)``,
+    which carries no autograd graph, while ``pack_shade_consts_f32``'s
+    tensor (equal bits) lets gradients reach the float tables.
+
     Returns (p (..., 4, N) colour * base, diffuse (..., 3, N), spec, lit,
     tap, fu, fv, texmask), the arguments of ``combine_from_prelight``."""
     m_n, t_n, has_m, has_a, has_l = shade_mode
     lay = shade_consts_layout(shade_mode)
     ci = consts  # int words
-    cf = sm.bitcast_f32(consts)  # the same words as floats
+    if cf is None:
+        cf = sm.bitcast_f32(consts)  # the same words as floats
     nx, ny, nz = attr[..., 4, :], attr[..., 5, :], attr[..., 6, :]
     u, v = attr[..., 7, :], attr[..., 8, :]
     wx, wy, wz = attr[..., 9, :], attr[..., 10, :], attr[..., 11, :]
@@ -327,40 +342,46 @@ def pack_setup_table(su):
 
 
 def shade(vis_tri, su, attrs, shade_mode, consts, atlas=None, light=None,
-          cfg=None, clear_color=(0.0, 0.0, 0.0, 1.0)):
+          cfg=None, clear_color=(0.0, 0.0, 0.0, 1.0), cf=None, specular=True):
     """Shade the classic pipeline's visibility buffer into (H, W, 4) f32
     RGBA at render resolution: each pixel gathers its winner's setup row
     (``pack_setup_table``) and its three corner rows of the combined
     attribute table ``attrs`` (VA, 12), then ``shade_gathered``.
     ``shade_mode`` and ``consts``: the scene's ``pipeline.surface_mode``
-    and ``pack_shade_consts``."""
+    and ``pack_shade_consts``; ``cf`` and ``specular``: see
+    ``shade_gathered``."""
     valid = vis_tri >= 0
     packed = _take(pack_setup_table(su), vis_tri)  # (H, W, 14)
     g = {k: sm.bitcast_f32(packed[..., i]) if k in SETUP_F32_FIELDS
          else packed[..., i] for i, k in enumerate(_PACK_FIELDS)}
     corners = [_take(attrs, g[k]).movedim(-1, -2) for k in ("v0", "v1", "v2")]
     return shade_gathered(valid, g, *corners, shade_mode, consts, atlas=atlas,
-                          light=light, cfg=cfg, clear_color=clear_color)
+                          light=light, cfg=cfg, clear_color=clear_color,
+                          cf=cf, specular=specular)
 
 
 def shade_gathered(valid, g, a0, a1, a2, shade_mode, consts, atlas=None,
-                   light=None, cfg=None, clear_color=(0.0, 0.0, 0.0, 1.0)):
+                   light=None, cfg=None, clear_color=(0.0, 0.0, 0.0, 1.0),
+                   cf=None, specular=True):
     """Shading from already fetched winner data: ``g`` the per-pixel setup
     fields (H, W) and the corner attributes a0-a2 (H, 12, W), pixel (x, y)
     at [y, x].  The reference's ``interp_fields`` + ``shade_surface`` are
     here ``interp_fields_stacked``, ``surface_prelight`` and
     ``combine_from_prelight``, the definition the fused route uses.
+    ``cf``: the float words of ``consts`` (``surface_prelight``);
+    ``specular=False`` leaves out the specular term, as the reference's
+    ``shade_surface`` does when it is given no camera position.
     Returns (H, W, 4) f32 RGBA."""
     h, w = valid.shape
     dev = valid.device
     px = torch.arange(w, dtype=I32, device=dev).expand(h, w)
     py = torch.arange(h, dtype=I32, device=dev)[:, None].expand(h, w)
     attr, duv = interp_fields_stacked(g, a0, a1, a2, px, py, cfg)
-    pre = surface_prelight(attr, duv, g["mat"], shade_mode, consts)
+    pre = surface_prelight(attr, duv, g["mat"], shade_mode, consts, cf=cf)
     return combine_from_prelight(
         valid, *pre, atlas=atlas if shade_mode[3] else None,
-        light=light if shade_mode[4] else None, has_materials=shade_mode[2],
-        clear_color=clear_color,
+        light=light if shade_mode[4] else None,
+        has_materials=shade_mode[2] and specular, clear_color=clear_color,
     )
 
 

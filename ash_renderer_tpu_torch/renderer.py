@@ -6,7 +6,8 @@ explicit torch device.
 * Settings-dependent tier (``_build_settings_dependent``): scene tensors,
   materials, atlas and light on the device; rebuilt by ``update_settings``.
 * Resize-dependent tier (``_build_resize_dependent``): the RasterConfig,
-  the frame ring and the front cache; rebuilt by ``resize``.
+  the frame ring and the front cache; rebuilt by ``resize``, or inside
+  ``draw_frame`` when the extent it is given no longer matches.
 
 ``settings.pipeline`` picks the frame pipeline: "fused" (meshlet packing,
 8x128 tiles, kernels K1-K3/K3F), "classic" (plain packing, 16x128 tiles,
@@ -129,6 +130,13 @@ class Renderer:
         )
         self._build_resize_dependent()
 
+    def update_mesh(self, mesh_index: int, mesh):
+        """Re-upload geometry after a mesh edit (update_vertices analogue,
+        vertex_buffer_components.rs:71-87): the settings-dependent tier is
+        rebuilt with ``mesh`` in place of ``scene.meshes[mesh_index]``."""
+        self.scene.meshes[mesh_index] = mesh
+        self.update_settings(self.settings, self.scene)
+
     def render_frame(self, camera: Camera, model_mats: np.ndarray = None,
                      on_stage=_no_stage):
         """Render one frame; returns (rgba8 (H, W, 4) uint8 tensor on the
@@ -160,11 +168,22 @@ class Renderer:
         self.stats.record_dispatch(time.perf_counter() - t0)
         return rgba8, aux
 
-    def draw_frame(self, camera: Camera, model_mats=None, on_present=None):
+    def draw_frame(self, camera: Camera, model_mats=None, on_present=None,
+                   extent=None):
         """Frame-loop step: render and submit to the present ring.  Returns
         the host RGBA8 of the frame completed frames_in_flight ago, or
-        None."""
+        None.
+
+        extent: the present target's current (width, height), when the
+        caller has one (``App`` passes its window extent).  If it no longer
+        matches the settings, the renderer rebuilds its resize-dependent
+        tier here, without the caller's help: the reference's in-draw
+        OUT_OF_DATE / SUBOPTIMAL swapchain recovery (renderer.rs:416-428,
+        587-596)."""
         t0 = time.perf_counter()
+        if extent is not None and tuple(extent) != (self.settings.width,
+                                                    self.settings.height):
+            self.resize(*extent)
         rgba8, aux = self.render_frame(camera, model_mats)
         presented = self.ring.push(rgba8, on_present)
         self.stats.record_frame(time.perf_counter() - t0, aux)

@@ -5,6 +5,9 @@ Mip levels come from an exact integer box filter, texels are packed one
 int32 per texel (r | g<<8 | b<<16 | a<<24), and ``quads`` holds each texel's
 wrap-addressed 2x2 bilinear footprint so shading fetches it in one row
 gather.  ``state.upload`` moves the arrays to the device.
+
+``load_image`` and ``decode_image`` decode image files with PIL (Pillow),
+imported when called: where it is not installed they raise ``ImportError``.
 """
 
 from __future__ import annotations
@@ -119,6 +122,33 @@ def build_quads(texels, off, lw, lh, nl) -> np.ndarray:
                 h * w, 4
             )
     return quads
+
+
+def _pil_image(fn: str):
+    """PIL's ``Image`` module, or an ImportError naming ``fn``."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{fn} decodes images with PIL (Pillow), which is "
+                          "not installed") from e
+    return Image
+
+
+def load_image(path: str) -> np.ndarray:
+    """Decode an image file to RGBA8 (H, W, 4) uint8 (PIL; the reference
+    uses the Rust ``image`` crate in textures.rs:10-13)."""
+    image = _pil_image("textures.load_image")
+    with image.open(path) as im:
+        return np.asarray(im.convert("RGBA"), dtype=np.uint8)
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Decode an image held in memory (a glTF embedded image) to RGBA8."""
+    import io
+
+    image = _pil_image("textures.decode_image")
+    with image.open(io.BytesIO(data)) as im:
+        return np.asarray(im.convert("RGBA"), dtype=np.uint8)
 
 
 def checkerboard(size: int = 256, cells: int = 8) -> np.ndarray:

@@ -100,7 +100,28 @@ lines and seconds; any failure raises and the exit code is non-zero):
    seconds; ``validate_frame`` finds the subdiv-8 frames (staged and
    fallback) clean; ``profiling.trace`` writes a Chrome trace of one
    fallback frame under ``build/traces/``; a CUDA ``profiling.Timer``
-   reads each stage of that frame.
+   reads each stage of that frame;
+17. the app, asset loaders and serialization, launch counts zeroed just
+   before ``app.main`` and read just after it: ``app.main
+   ["config4_terrain"]`` without ``--device`` (the card by default) writes
+   a PNG that decodes (stdlib inflate) to ``docs/golden/
+   headline_terrain.json``'s sha256 (1,002,528 triangles, 1920x1080; K1,
+   K2 and K3 launched), ``app.main ["reference", "--size", "320x240"]``
+   to the pinned reference golden (K4); config1 (its OBJ through
+   ``native.parse_obj``, held to the Python parser) over three scripted
+   ``App.run`` events, each presented frame equal to the port's oracle at
+   the controller's camera; ``request_resize`` recovered inside
+   ``draw_frame`` and ``update_mesh``, each equal to a fresh Renderer; an
+   untextured glTF through ``app.main`` equal to the oracle; config5 frame
+   0 byte-equal across ``save_scene`` / ``load_scene`` and equal to the
+   oracle; ``App.run`` fps for terrain and config1;
+18. diffrender on examples/inverse_rendering.py's scene (icosphere 3,
+   128x128): the classic route's ``vis_tri`` (K4) equals
+   ``visibility_oracle``'s; ``shade_params_fn``'s card forward equals the
+   CPU's bit for bit (unlit and lit); card gradients (vertex colours, base
+   colour, specular, light direction, colour, ambient) equal the CPU's
+   within rtol 1e-4 / atol 1e-6; ``fit_to_image`` converges on the card as
+   on the CPU, with ms per step.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -1196,6 +1217,444 @@ def debug_checks(dev, card, oracle_cases, auxes, fb, cam) -> None:
         f"{k} {v * 1e3:.3f} ms" for k, v in times.items()))
 
 
+def decode_png(path: str):
+    """An 8-bit RGBA PNG whose rows all use filter 0 (``present.encode_png``
+    writes only those) as (H, W, 4) uint8, with the standard library's
+    inflate: the frame a user of ``app.main`` gets, read back without PIL."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            require((depth, ctype) == (8, 6), f"{path}: not 8-bit RGBA")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 4 * w)
+    require(not rows[:, 0].any(), f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 4)
+
+
+# scripted input for the App runs of phase 17: every key, both mouse axes
+APP_EVENTS = (dict(forward=True), dict(mouse_dx=3.0, right=True),
+              dict(left=True, mouse_dy=-2.0, backward=True))
+
+
+def replay_cameras(cam0, events, speed=0.01, mouse_sens=0.01):
+    """The camera after each event of ``events`` (dicts of InputEvent
+    fields), replayed from a copy of ``cam0`` through a fresh
+    CameraController: the cameras App.run draws."""
+    import dataclasses
+
+    from ash_renderer_tpu_torch.camera import CameraController
+
+    cam = dataclasses.replace(cam0, position=cam0.position.copy())
+    ctl = CameraController(speed=speed, mouse_sens=mouse_sens)
+    out = []
+    for ev in events:
+        ctl.forward_pressed = ev.get("forward", False)
+        ctl.backward_pressed = ev.get("backward", False)
+        ctl.left_pressed = ev.get("left", False)
+        ctl.right_pressed = ev.get("right", False)
+        ctl.process_mouse(ev.get("mouse_dx", 0.0), ev.get("mouse_dy", 0.0))
+        ctl.update_camera(cam)
+        out.append(dataclasses.replace(cam, position=cam.position.copy()))
+    return out
+
+
+def app_fps(card: str, label: str, scene, settings, dev, n: int) -> None:
+    """``n`` frames of App.run (events cycling APP_EVENTS) after a
+    two-frame warm-up run: FrameStats' host-loop fps and the wall-clock fps
+    up to the drained ring; then the stage ms of one frame at a camera the
+    front cache has not seen."""
+    import dataclasses
+
+    import torch
+
+    from ash_renderer_tpu_torch.app import App, InputEvent
+
+    a = App(scene, settings, device=dev)
+    a.run(2)
+    torch.cuda.synchronize()
+    a.renderer.stats.frame_times.clear()
+    events = [InputEvent(**APP_EVENTS[i % len(APP_EVENTS)]) for i in range(n)]
+    t0 = time.perf_counter()
+    stats = a.run(n, events)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    say(f"[{card}] App.run {label}: {n} frames, FrameStats fps "
+        f"{stats.fps:.2f}, wall {n / wall:.2f} fps ({wall * 1e3 / n:.2f} ms "
+        f"a frame, ring drained); last frame's counters {stats.summary()}")
+    # where a moving frame's time goes (each camera new to the front cache)
+    cam = a.camera
+    for dtheta in (0.01, 0.02):
+        stages = stage_ms(a.renderer, dataclasses.replace(
+            cam, theta=cam.theta + dtheta))
+    say(f"[{card}] stage ms ({label}, moving): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+
+
+def untextured_gltf(path: str) -> None:
+    """Write a glTF (external .bin) of an icosphere (subdiv 4, 5,120
+    triangles, untextured, vertex colours and normals) under a node with a
+    translation and a rotation, and one coloured material."""
+    import numpy as np
+
+    from ash_renderer_tpu_torch.models import icosphere
+
+    m = icosphere(4, 1.2)
+    n = m.num_vertices
+    col = np.stack([0.5 + 0.5 * np.sin(np.arange(n) * 0.05),
+                    0.5 + 0.5 * np.cos(np.arange(n) * 0.07),
+                    np.linspace(0.2, 1.0, n)], axis=1).astype(np.float32)
+    blobs = [m.positions, m.normals, col, m.indices.astype(np.uint32)]
+    data, views = b"", []
+    for b in blobs:
+        views.append({"buffer": 0, "byteOffset": len(data),
+                      "byteLength": b.nbytes})
+        data += b.tobytes()
+    acc = [{"bufferView": i, "componentType": ct, "count": c, "type": t}
+           for i, (ct, c, t) in enumerate(((5126, n, "VEC3"), (5126, n, "VEC3"),
+                                           (5126, n, "VEC3"),
+                                           (5125, m.indices.size, "SCALAR")))]
+    doc = {"asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+           "nodes": [{"mesh": 0, "translation": [0.2, -0.1, 0.3],
+                      "rotation": [0.0, 0.3826834, 0.0, 0.9238795]}],
+           "meshes": [{"primitives": [{"attributes": {
+               "POSITION": 0, "NORMAL": 1, "COLOR_0": 2}, "indices": 3,
+               "material": 0}]}],
+           "materials": [{"pbrMetallicRoughness": {
+               "baseColorFactor": [0.9, 0.8, 0.7, 1.0]}}],
+           "accessors": acc, "bufferViews": views,
+           "buffers": [{"uri": os.path.basename(path) + ".bin",
+                        "byteLength": len(data)}]}
+    with open(path + ".bin", "wb") as f:
+        f.write(data)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
+def app_checks(dev, card: str, ref_golden: str) -> dict:
+    """Phase 17: the app, the asset loaders and serialization on the card.
+    ``app.main`` without ``--device`` renders config4_terrain (K1-K3,
+    launch counts zeroed just before and read just after) and the reference
+    scene at 320x240 (K4) to PNGs that decode to their goldens; config1
+    (its OBJ through the native parser) runs App.run over scripted input
+    with every presented frame equal to the port's oracle at the
+    controller's camera, then self-recovers a resize and takes a mesh edit;
+    an untextured glTF through ``main`` equals the oracle; config5 frame 0
+    survives a save_scene / load_scene round trip byte for byte and equals
+    the oracle; App.run fps for terrain and config1.  Returns the terrain
+    run's launch counts."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ash_renderer_tpu_torch import _build, app, benchmarks, native
+    from ash_renderer_tpu_torch import serialization
+    from ash_renderer_tpu_torch.camera import orbit_path
+    from ash_renderer_tpu_torch.config import RendererSettings
+    from ash_renderer_tpu_torch.models import load_gltf
+    from ash_renderer_tpu_torch.models.obj import load_obj_python, save_obj
+    from ash_renderer_tpu_torch.present import FrameCollector
+    from ash_renderer_tpu_torch.renderer import Renderer
+    from ash_renderer_tpu_torch.scene import Mesh
+
+    out = os.path.join(ROOT, "build", "app")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+
+    # config4_terrain through the CLI, on the card by default
+    gt = golden("headline_terrain.json")
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    paths = app.main(["config4_terrain", "--frames", "1", "--out",
+                      os.path.join(out, "terrain")])
+    torch.cuda.synchronize()
+    t_main = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    say(json.dumps(counts, sort_keys=True))
+    for k in ("K1_setup", "K2_run_bounds", "K3_raster"):
+        require(counts.get(k, 0) > 0, f"{k} was not launched by app.main "
+                "config4_terrain")
+    ft = decode_png(paths[0])
+    covered = int((ft[..., :3] != 0).any(axis=-1).sum())
+    require(sha(ft) == gt["sha256"], f"terrain: app.main frame sha256 "
+            f"{sha(ft)} != golden {gt['sha256']}")
+    say(f"app.main config4_terrain ({gt['n_tris']} tris, {ft.shape[1]}x"
+        f"{ft.shape[0]}, {covered} non-black px): PNG decodes to the golden "
+        f"sha256 EXACT ({t_main:.1f} s: scene, meshlets, upload, frame, PNG)")
+
+    # the reference scene through the CLI: the classic route, K4
+    _build.launches.clear()
+    paths = app.main(["reference", "--size", "320x240", "--out",
+                      os.path.join(out, "reference")])
+    torch.cuda.synchronize()
+    counts_r = dict(_build.launches)
+    require(counts_r.get("K4_raster_classic", 0) > 0,
+            "K4 was not launched by app.main reference")
+    fr = decode_png(paths[0])
+    require(sha(fr) == ref_golden, "reference 320x240: app.main frame != golden")
+    say(f"app.main reference 320x240 (classic, K4 {counts_r.get('K4_raster_classic', 0)}"
+        "x): PNG decodes to the golden sha256 EXACT")
+
+    # config1: the OBJ through the native parser, then App.run
+    require(native.available(), "no host C++ compiler for the OBJ parser")
+    scene1, st1, cams1 = benchmarks.config1_textured_obj()
+    obj_path = os.path.join(out, "sphere.obj")
+    save_obj(obj_path, scene1.meshes[0])
+    parsed = native.parse_obj(obj_path)
+    slow = load_obj_python(obj_path, compute_normals_if_missing=False)
+    for got, k in zip(parsed, ("positions", "uvs", "normals", "indices")):
+        require(np.array_equal(got, getattr(slow, k)),
+                f"native.parse_obj != load_obj_python ({k})")
+    events = [dict(e) for e in APP_EVENTS]
+    a1 = app.App(scene1, st1, device=dev)
+    require(a1.renderer.settings.pipeline == "fused", "config1 is not fused")
+    coll = FrameCollector()
+    a1.run(len(events), [app.InputEvent(**e) for e in events], on_present=coll)
+    cams = replay_cameras(cams1[0], events)
+    require(len(coll.frames) == len(events), "config1: frames missing")
+    for i, (f, cam) in enumerate(zip(coll.frames, cams)):
+        o, o_s = oracle_frame(a1.renderer, cam)
+        require((f == o["rgba8"]).all(),
+                f"config1 App.run frame {i} != the port's oracle")
+    require(np.array_equal(a1.camera.position, cams[-1].position),
+            "config1: the App's camera != the replayed controller's")
+    say(f"config1 ({scene1.meshes[0].num_triangles} tris via native.parse_obj, "
+        f"{st1.width}x{st1.height}, fused): App.run over {len(events)} scripted "
+        f"events, every presented frame == the port's oracle ({o_s:.2f} s a "
+        "frame)")
+    # a resize event mid-run: recovered inside draw_frame
+    a1.request_resize(640, 480)
+    coll = FrameCollector()
+    a1.step(app.InputEvent(), on_present=coll)
+    a1.renderer.finish()
+    require(coll.frames[-1].shape == (480, 640, 4), "resize: wrong frame size")
+    fresh = Renderer(scene1, dataclasses.replace(st1, width=640, height=480),
+                     device=dev)
+    require((coll.frames[-1] == fresh.read_frame(
+        fresh.render_frame(a1.camera)[0])).all(),
+        "resize: frame != a fresh Renderer's at 640x480")
+    # a mesh edit
+    m = scene1.meshes[0]
+    edited = Mesh(positions=m.positions * np.float32(0.7), indices=m.indices,
+                  normals=m.normals, uvs=m.uvs, colors=m.colors)
+    before = a1.renderer.read_frame(a1.renderer.render_frame(a1.camera)[0])
+    a1.renderer.update_mesh(0, edited)
+    after = a1.renderer.read_frame(a1.renderer.render_frame(a1.camera)[0])
+    s2, _, _ = benchmarks.config1_textured_obj()
+    s2.meshes[0] = edited
+    fresh = Renderer(s2, dataclasses.replace(st1, width=640, height=480),
+                     device=dev)
+    require((after == fresh.read_frame(fresh.render_frame(a1.camera)[0])).all()
+            and not (after == before).all(),
+            "update_mesh: frame != a fresh Renderer's on the edited scene")
+    say("config1: request_resize(640, 480) recovered in draw_frame == fresh "
+        "Renderer; update_mesh == fresh Renderer on the edited mesh")
+    del a1, fresh
+
+    # an untextured glTF through the CLI (5,120 tris: fused, phase F)
+    gpath = os.path.join(out, "ico.gltf")
+    untextured_gltf(gpath)
+    gout = os.path.join(out, "gltf")
+    paths = app.main([gpath, "--size", "320x240", "--frames", "2", "--out",
+                      gout])
+    rg = Renderer(load_gltf(gpath), RendererSettings(width=320, height=240),
+                  device=dev)
+    for p, cam in zip(paths, orbit_path(2, radius=4.0)):
+        f = decode_png(p)
+        require(int(f[..., :3].max()) > 0, "glTF: black frame")
+        require((f == oracle_frame(rg, cam)[0]["rgba8"]).all(),
+                f"glTF {os.path.basename(p)} != the port's oracle")
+    say(f"app.main on an untextured glTF (5120 tris, 320x240, "
+        f"{rg.settings.pipeline}): 2 orbit frames == the port's oracle")
+    del rg
+
+    # config5 frame 0 across save_scene / load_scene
+    scene5, st5, cams5 = benchmarks.config5_flythrough()
+    r5 = Renderer(scene5, st5, device=dev)
+    f5 = r5.read_frame(r5.render_frame(cams5[0])[0])
+    npz = os.path.join(out, "config5.npz")
+    serialization.save_scene(npz, scene5, cams5)
+    back, back_cams = serialization.load_scene(npz)
+    require(len(back_cams) == len(cams5), "config5: cameras lost")
+    rb = Renderer(back, st5, device=dev)
+    fb = rb.read_frame(rb.render_frame(cams5[0])[0])
+    require((fb == f5).all(), "config5: frame 0 differs after load_scene")
+    o5, o_s = oracle_frame(r5, cams5[0])
+    require((f5 == o5["rgba8"]).all(), "config5 frame 0 != the port's oracle")
+    say(f"config5 frame 0 ({sum(mm.num_triangles for mm in scene5.meshes)} "
+        f"tris, {st5.width}x{st5.height} ss {st5.supersample}): byte-equal "
+        f"after save_scene / load_scene, == the port's oracle ({o_s:.2f} s)")
+    del r5, rb
+
+    # frame rates through App.run
+    scene_t, st_t, _ = benchmarks.config4_terrain()
+    for label, sc, st in (("config4_terrain", scene_t, st_t),
+                          ("config1", scene1, st1)):
+        app_fps(card, f"{label} {st.width}x{st.height}", sc, st, dev, N_FRAMES)
+    torch.cuda.synchronize()
+    return counts
+
+
+def diffrender_checks(dev, card: str) -> None:
+    """Phase 18: diffrender on the card, on examples/inverse_rendering.py's
+    scene (icosphere subdiv 3 at z = 3, seeded colours, 128x128).  The
+    classic pipeline's visibility on the card (K4) equals the port's
+    visibility oracle; shade_params_fn's forward on the card equals the
+    CPU's bit for bit, unlit and lit; gradients of a weighted image mean
+    with respect to vertex colours, base colour, specular and the light
+    equal the CPU's within rtol 1e-4 / atol 1e-6 (NaNs in the same
+    places); fit_to_image converges as on the CPU; ms per step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ash_renderer_tpu_torch import _build, diffrender, mathx
+    from ash_renderer_tpu_torch.camera import Camera
+    from ash_renderer_tpu_torch.config import RendererSettings
+    from ash_renderer_tpu_torch.models import icosphere
+    from ash_renderer_tpu_torch.oracle import geometry_oracle, visibility_oracle
+    from ash_renderer_tpu_torch.renderer import Renderer
+    from ash_renderer_tpu_torch.rtypes import (LightPack, MaterialsPack,
+                                               TriangleSetup)
+    from ash_renderer_tpu_torch.scene import Scene, SceneObject
+
+    rng = np.random.default_rng(0)
+    mesh = icosphere(3)
+    colors = rng.uniform(0.1, 1.0, (mesh.num_vertices, 4)).astype(np.float32)
+    colors[:, 3] = 1.0
+    mesh.colors = colors
+    scene = Scene()
+    scene.add_object(SceneObject(mesh=scene.add_mesh(mesh),
+                                 model=mathx.translation([0, 0, 3])))
+    cam = Camera()
+    r = Renderer(scene, RendererSettings(width=128, height=128, clip_budget=64),
+                 device=dev)
+    require(r.settings.pipeline == "classic", "diffrender scene is not classic")
+    _build.launches.clear()
+    _, aux = r.render_frame(cam)
+    vis_card = aux["vis_tri"].cpu().numpy()
+    require(_build.launches.get("K4_raster_classic", 0) > 0, "K4 not launched")
+    su, attrs = geometry_oracle(scene.pack(), scene.model_matrices(),
+                                cam.view_matrix(), cam.projection_matrix(1.0),
+                                r.cfg, 64)
+    _, vis_o = visibility_oracle(su, r.cfg)
+    require(np.array_equal(vis_card, vis_o),
+            "diffrender: the card's classic vis_tri != visibility_oracle's")
+    say(f"diffrender scene (icosphere 3, 128x128): the card's vis_tri (K4) == "
+        f"visibility_oracle ({int((vis_o >= 0).sum())} covered px)")
+
+    nv = attrs.shape[0]
+    lit = dict(light=(np.array([0.3, -0.6, 0.75], np.float32),
+                      np.array([1.0, 0.95, 0.9], np.float32),
+                      np.array(0.15, np.float32)),
+               camera_pos=cam.position.astype(np.float32))
+
+    def make(device, with_light):
+        def t(a):
+            return torch.from_numpy(np.array(a)).to(device)
+
+        s = TriangleSetup(**{f.name: t(getattr(su, f.name))
+                             for f in dataclasses.fields(TriangleSetup)})
+        mats = MaterialsPack(t(np.full((1, 4), 0.9, np.float32)),
+                             t(np.full(1, -1, np.int32)),
+                             t(np.full(1, 0.4, np.float32)),
+                             t(np.full(1, 16, np.int32)))
+        light = LightPack(*map(t, lit["light"])) if with_light else None
+        fn = diffrender.shade_params_fn(
+            t(vis_card), s, t(attrs), r.cfg, mats, light=light,
+            camera_pos=lit["camera_pos"] if with_light else None)
+        return fn, mats, light, t(attrs)
+
+    wts = np.random.default_rng(1).uniform(0.5, 1.5, (128, 128, 3)).astype(
+        np.float32)
+    for with_light in (False, True):
+        grads, imgs = {}, {}
+        for device in ("cpu", dev):
+            fn, mats, light, at = make(device, with_light)
+            leaves = {"vc": at[:, :4].clone().requires_grad_(True),
+                      "base": mats.base_color.clone().requires_grad_(True),
+                      "spec": mats.specular.clone().requires_grad_(True)}
+            p = {"vertex_colors": leaves["vc"], "materials": dataclasses.replace(
+                mats, base_color=leaves["base"], specular=leaves["spec"])}
+            if with_light:
+                leaves.update(ldir=light.direction.clone().requires_grad_(True),
+                              lcol=light.color.clone().requires_grad_(True),
+                              amb=light.ambient.clone().requires_grad_(True))
+                p["light"] = LightPack(leaves["ldir"], leaves["lcol"],
+                                       leaves["amb"])
+            img = fn(p)
+            torch.mean(img[..., :3] * torch.from_numpy(wts).to(img.device)
+                       ).backward()
+            imgs[str(device)] = img.detach().cpu().numpy()
+            grads[str(device)] = {k: v.grad.cpu().numpy()
+                                  for k, v in leaves.items()}
+        label = "lit" if with_light else "unlit"
+        require(np.array_equal(imgs["cpu"].view(np.int32),
+                               imgs[str(dev)].view(np.int32)),
+                f"diffrender {label}: card forward != CPU forward")
+        for k, g in grads["cpu"].items():
+            gc = grads[str(dev)][k]
+            require(np.array_equal(np.isnan(g), np.isnan(gc)),
+                    f"diffrender {label}: NaN gradients differ ({k})")
+            ok = np.isnan(g) | np.isclose(gc, g, rtol=1e-4, atol=1e-6)
+            if not ok.all():
+                require(False, f"diffrender {label}: card gradient != CPU "
+                        f"({k}: max |d| {np.abs(gc - g)[~ok].max():.3g})")
+        say(f"diffrender {label}: card forward == CPU bit for bit; gradients "
+            f"({', '.join(sorted(grads['cpu']))}) == CPU within rtol 1e-4, "
+            "atol 1e-6")
+
+    # the inverse-rendering fit, as examples/inverse_rendering.py runs it
+    steps = 120
+    res = {}
+    for device in ("cpu", dev):
+        fn, _, _, at = make(device, False)
+        target = fn({"vertex_colors": at[:, :4]}).detach()
+        p0 = {"vertex_colors": torch.full_like(at[:, :4], 0.5)}
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, losses = diffrender.fit_to_image(target, fn, p0, steps=steps,
+                                                 lr=0.1)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        res[str(device)] = (losses, (time.perf_counter() - t0) * 1e3 / steps,
+                            params["vertex_colors"].cpu().numpy())
+    (lc, mc, pc), (lg, mg, pg) = res["cpu"], res[str(dev)]
+    require(lg[-1] < 0.05 * lg[0] and lg[-1] <= 2.0 * lc[-1] + 1e-7,
+            f"diffrender fit on the card: loss {lg[0]:.3e} -> {lg[-1]:.3e} "
+            f"(CPU {lc[-1]:.3e})")
+    seen = np.unique(su.v0[vis_o[vis_o >= 0]].tolist()
+                     + su.v1[vis_o[vis_o >= 0]].tolist()
+                     + su.v2[vis_o[vis_o >= 0]].tolist())
+    seen = seen[seen < nv]
+    err_g = np.median(np.abs(pg[seen, :3] - attrs[seen, :3]))
+    err_c = np.median(np.abs(pc[seen, :3] - attrs[seen, :3]))
+    require(err_g < 0.06, f"diffrender fit on the card: median colour "
+            f"error {err_g:.4f}")
+    say(f"[{card}] diffrender fit_to_image ({steps} Adam steps, lr 0.1): "
+        f"card loss {lg[0]:.4e} -> {lg[-1]:.4e}, CPU {lc[0]:.4e} -> "
+        f"{lc[-1]:.4e}; median colour error on {len(seen)} seen vertices "
+        f"card {err_g:.5f}, CPU {err_c:.5f}; ms per step card {mg:.3f}, "
+        f"CPU {mc:.3f}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1521,6 +1980,15 @@ def main() -> int:
             (("staged", aux8), ("fallback", aux_fb8)), fb8, cams8[0])
         del fb8
         say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    with Phase("17 the app, asset loaders and serialization on the card"):
+        torch.cuda.reset_peak_memory_stats()
+        app_checks(dev, card, GOLDEN_SHA["reference"])
+        say(f"peak device memory (phase 17): "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    with Phase("18 diffrender on the card"):
+        diffrender_checks(dev, card)
 
     meta = {
         "K1": ("K1_setup", "ash_renderer_tpu_torch/csrc/setup.cu",

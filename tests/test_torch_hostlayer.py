@@ -265,13 +265,16 @@ def _port_files():
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    """AST scan of every module of the port (the oracle and the debug layer
-    included), chip_smoke.py and the frame profiler: no import of jax,
+    """AST scan of every module of the port (the oracle, the debug layer,
+    the app, the loaders and diffrender included), chip_smoke.py and the
+    frame profiler: no import of jax,
     jaxlib or ash_renderer_tpu (or a submodule)."""
     files = _port_files()
     assert len(files) > 20
     rel = {os.path.relpath(p, ROOT) for p in files}
     assert {os.path.join("ash_renderer_tpu_torch", f) for f in (
+        "app.py", "diffrender.py", "serialization.py", "present.py",
+        os.path.join("models", "obj.py"), os.path.join("models", "gltf.py"),
         "debugging.py", "profiling.py", os.path.join("oracle", "__init__.py"),
         os.path.join("oracle", "raster_cpu.py"),
         os.path.join("oracle", "scalar_ref.py"),

@@ -641,3 +641,47 @@ def port_oracle_frame(case):
         materials=mats, atlas=atlas, light=light,
         camera_pos=case.cam.position.astype(np.float32), cfg=case.cfg,
     )
+
+
+def same_bits(got, want):
+    """Equal dtype, shape and bits."""
+    got = np.ascontiguousarray(got)
+    want = np.ascontiguousarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+MESH_FIELDS = ("positions", "indices", "colors", "normals", "uvs")
+
+
+def same_mesh(got, want):
+    for k in MESH_FIELDS:
+        same_bits(getattr(got, k), getattr(want, k))
+
+
+def same_scene(got, want):
+    """Two scenes (of either package) hold the same meshes, objects,
+    materials, light and atlas, bit for bit."""
+    assert len(got.meshes) == len(want.meshes)
+    for a, b in zip(got.meshes, want.meshes):
+        same_mesh(a, b)
+    assert len(got.objects) == len(want.objects)
+    for a, b in zip(got.objects, want.objects):
+        assert (a.mesh, a.material) == (b.mesh, b.material)
+        same_bits(a.model, b.model)
+    assert [(tuple(m.base_color), m.texture_id, m.specular, m.shininess)
+            for m in got.materials] == [
+        (tuple(m.base_color), m.texture_id, m.specular, m.shininess)
+        for m in want.materials]
+    assert (got.light is None) == (want.light is None)
+    if got.light is not None:
+        assert (tuple(got.light.direction), tuple(got.light.color),
+                got.light.ambient) == (tuple(want.light.direction),
+                                       tuple(want.light.color),
+                                       want.light.ambient)
+    assert (got.atlas is None) == (want.atlas is None)
+    if got.atlas is not None:
+        for k in ("texels", "quads", "level_offset", "level_w", "level_h",
+                  "n_levels"):
+            same_bits(getattr(got.atlas, k), getattr(want.atlas, k))
+
