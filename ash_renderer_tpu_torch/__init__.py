@@ -22,7 +22,15 @@ autograd.  On a CUDA device the kernels (triangle setup, run bounds, raster
 + distribute with or without phase F shading, classic raster, corner
 gather) are built from ``csrc/`` at first use; on the CPU each runs as its
 plain torch version.
+
+``Renderer(..., mesh=make_render_mesh([...]))`` or
+``RendererSettings(n_devices=N)`` renders each frame in row slabs, one per
+mesh device (``parallel``: ``make_render_mesh``, ``render_frame_sharded``,
+``render_frame_sharded_fused``); a mesh may repeat a device.
 """
+
+_PARALLEL = ("make_render_mesh", "render_frame_sharded",
+             "render_frame_sharded_fused")
 
 
 def __getattr__(name):
@@ -34,6 +42,10 @@ def __getattr__(name):
         from .app import App
 
         return App
+    if name in _PARALLEL:
+        from . import parallel
+
+        return getattr(parallel, name)
     raise AttributeError(
         f"module 'ash_renderer_tpu_torch' has no attribute {name!r}"
     )

@@ -3,9 +3,9 @@
 The port's own copy of ``ash_renderer_tpu/config.py``: every field and every
 default of ``RendererSettings`` is kept, so one settings object means the same
 thing in both packages (the tests compare ``dataclasses.asdict`` of both).
-Fields that only the JAX package reads (its jit, TPU-tile and multi-chip
-knobs) are carried unread; the port's Renderer refuses the settings it
-cannot honour yet (``renderer.py``).
+Fields that only the JAX package reads (its jit and TPU-tile knobs) are
+carried unread; the port's Renderer refuses the settings it cannot honour
+(``renderer.py``).
 
 The three-tier contract is the reference's (``src/renderer.rs:34-44,
 601-627``): changing a setting rebuilds the settings-dependent world,
@@ -74,7 +74,10 @@ class RendererSettings:
     # Frame-coherence reuse of the front (pipeline.FrontCache): while the
     # model + MVP matrix bytes repeat, the front's outputs are reused.
     front_coherence: bool = True
-    # Multi-device rendering over framebuffer-row slabs; None = one device.
+    # Multi-device rendering over framebuffer-row slabs: the Renderer takes
+    # cuda:0 .. n-1 on a CUDA device (raising if fewer cards exist) or n
+    # slabs of the CPU on the CPU; an explicit Renderer(mesh=) wins.  None
+    # = one device, no slabs.
     n_devices: Optional[int] = None
 
     @property

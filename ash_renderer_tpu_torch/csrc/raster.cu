@@ -5,7 +5,13 @@
 // surface half is _phase_f); the plain torch version is
 // ops/fused_kernel.py:rasterize_distribute_plain.
 //
-// One block per tile.  Phase V streams the tile's 7 ranges (rmeta) as one
+// One block per tile of the grid, or of a slab's tile-row window
+// (parallel/sharding.py): row0, the window's first tile row, puts tile t at
+// tile row t / grid_w + row0 of the screen.  Every sample, pixel box and
+// warp footprint is in screen rows; only the vis planes are written in the
+// window's own rows.
+//
+// Phase V streams the tile's 7 ranges (rmeta) as one
 // sequence, CHUNK records at a time.  Each record is staged once in shared
 // memory: its three edge values at the tile's first sample with their
 // per-column and per-row steps (a*ss, b*ss), its depths and id, and a
@@ -334,7 +340,7 @@ raster_kernel(const int* __restrict__ rmeta, const int* __restrict__ tbl,
               const int* __restrict__ ext, const int* __restrict__ comb,
               int* __restrict__ vis_d, int* __restrict__ vis_t,
               int* __restrict__ planes, int grid_w, int min_c, int ss,
-              ShadeMode smode) {
+              int row0, ShadeMode smode) {
   __shared__ Smem S;
   __shared__ int range_lo[N_RANGES + 1], range_start[N_RANGES];
   __shared__ int sc[SHADE ? MAX_CONSTS : 1];
@@ -358,8 +364,11 @@ raster_kernel(const int* __restrict__ rmeta, const int* __restrict__ tbl,
   __syncthreads();
   const int tile_x = t % grid_w, tile_y = t / grid_w;
   const int half = ss / 2;
+  // py0: the tile's first row in the window's vis planes; screen_y0: its
+  // first row on the screen, where its samples lie
   const int px0 = tile_x * TILE_W, py0 = tile_y * TILE_H;
-  const int sx0 = px0 * ss + half, sy0 = py0 * ss + half;
+  const int screen_y0 = (row0 + tile_y) * TILE_H;
+  const int sx0 = px0 * ss + half, sy0 = screen_y0 * ss + half;
 
   // ---------------- phase V ----------------
   const int vcol = (warp % COL_GROUPS) * FOOT_W + lane % FOOT_W;
@@ -404,7 +413,8 @@ raster_kernel(const int* __restrict__ rmeta, const int* __restrict__ tbl,
       const int pyl = floordiv(min(min(y0, y1), y2) - half + ss - 1, ss);
       const int pyh = floordiv(max(max(y0, y1), y2) - half, ss);
       int c0 = max(pxl - px0, 0), c1 = min(pxh - px0, TILE_W - 1);
-      const int r0 = max(pyl - py0, 0), r1 = min(pyh - py0, TILE_H - 1);
+      const int r0 = max(pyl - screen_y0, 0);
+      const int r1 = min(pyh - screen_y0, TILE_H - 1);
       if (r == FINE_RANGE) {
         const int w0 = (max(pxl, 0) % TILE_W) / FINE_W * FINE_W;
         c0 = max(c0, w0);
@@ -471,8 +481,8 @@ raster_kernel(const int* __restrict__ rmeta, const int* __restrict__ tbl,
     vis_d[vi] = S.win.d[pix];
     vis_t[vi] = bt;
     distribute<SHADE>(planes + (size_t)t * OUT_COLS * N_PIX + pix, bt,
-                      (px0 + col) * ss + half, (py0 + row) * ss + half, min_c,
-                      ss, comb, sc, smode);
+                      (px0 + col) * ss + half, (screen_y0 + row) * ss + half,
+                      min_c, ss, comb, sc, smode);
   }
 }
 
@@ -482,10 +492,10 @@ extern "C" int ash_rasterize_distribute(const int* rmeta, const int* tbl,
                                         const int* ext, const int* comb,
                                         int* vis_d, int* vis_t, int* planes,
                                         int n_tiles, int grid_w, int min_c,
-                                        int ss, void* stream) {
+                                        int ss, int row0, void* stream) {
   if (n_tiles > 0)
     raster_kernel<false><<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
-        rmeta, tbl, ext, comb, vis_d, vis_t, planes, grid_w, min_c, ss,
+        rmeta, tbl, ext, comb, vis_d, vis_t, planes, grid_w, min_c, ss, row0,
         ShadeMode{nullptr, 0, 0, 0, 0, 0, 0});
   return (int)cudaGetLastError();
 }
@@ -496,14 +506,14 @@ extern "C" int ash_rasterize_shade(const int* rmeta, const int* tbl,
                                    const int* ext, const int* comb,
                                    int* vis_d, int* vis_t, int* planes,
                                    int n_tiles, int grid_w, int min_c, int ss,
-                                   const int* consts, int n_consts, int m_n,
+                                   int row0, const int* consts, int n_consts, int m_n,
                                    int t_n, int has_m, int has_a, int has_l,
                                    void* stream) {
   if (n_consts > MAX_CONSTS || m_n > 16 || t_n > 2)
     return (int)cudaErrorInvalidValue;
   if (n_tiles > 0)
     raster_kernel<true><<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
-        rmeta, tbl, ext, comb, vis_d, vis_t, planes, grid_w, min_c, ss,
+        rmeta, tbl, ext, comb, vis_d, vis_t, planes, grid_w, min_c, ss, row0,
         ShadeMode{consts, n_consts, m_n, t_n, has_m, has_a, has_l});
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from .. import specmath as sm
-from .binsort import pixel_aabb_of
+from .binsort import pixel_aabb_of, window_rows
 
 RECORD_ROWS = 14
 F32_ROWS = 1
@@ -79,25 +79,33 @@ def _pack_tri_table(su, pxmin, pxmax, pymin, pymax):
     )
 
 
-def bin_triangles(su, cfg, max_pairs: int):
+def bin_triangles(su, cfg, max_pairs: int, tile_row0: int = 0,
+                  tile_rows=None):
     """Returns (records (14, max_pairs) int32, records_f (1, max_pairs)
     float32, rec_box (1, max_pairs) int32, tile_start (n_tiles,),
-    tile_count (n_tiles,), stats) over the whole tile grid; stats:
+    tile_count (n_tiles,), stats) over the tile-row window [tile_row0,
+    tile_row0 + tile_rows) (the whole grid by default; a slab of a
+    multi-device frame, ``parallel/sharding.py``): AABB rows are clamped to
+    the window, tiles counted from its first row, and each record's edge
+    values taken at its tile's sample origin on the screen.  stats:
     pairs_total, pairs_overflow."""
     dev = su.x0.device
     i32 = torch.int32
     ss = cfg.subpixel_scale
     half = ss // 2
     s_rows = su.x0.shape[0]
-    n_tiles = cfg.n_tiles
+    tile_rows, py_lo, py_hi = window_rows(cfg, tile_row0, tile_rows)
+    n_tiles = tile_rows * cfg.grid_w
     pxmin, pxmax, pymin, pymax = pixel_aabb_of(
         su.x0, su.y0, su.x1, su.y1, su.x2, su.y2, cfg)
+    pymin = torch.clamp(pymin, min=py_lo)
+    pymax = torch.clamp(pymax, max=py_hi)
     live = su.valid & (pxmax >= pxmin) & (pymax >= pymin)
     zero = torch.zeros_like(pxmin)
     tx0 = torch.where(live, pxmin // cfg.tile_w, zero)
     tx1 = torch.where(live, pxmax // cfg.tile_w, zero - 1)
-    ty0 = torch.where(live, pymin // cfg.tile_h, zero)
-    ty1 = torch.where(live, pymax // cfg.tile_h, zero - 1)
+    ty0 = torch.where(live, pymin // cfg.tile_h - tile_row0, zero)
+    ty1 = torch.where(live, pymax // cfg.tile_h - tile_row0, zero - 1)
     ntx = tx1 - tx0 + 1
     count = torch.where(live, ntx * (ty1 - ty0 + 1), zero)
 
@@ -132,7 +140,7 @@ def bin_triangles(su, cfg, max_pairs: int):
     live_p = tri_sorted >= 0
     tile_c = torch.clamp(tile_sorted, 0, n_tiles - 1)
     px0 = (tile_c % cfg.grid_w) * cfg.tile_w  # the tile's first pixel
-    py0 = (tile_c // cfg.grid_w) * cfg.tile_h
+    py0 = (tile_c // cfg.grid_w + tile_row0) * cfg.tile_h
     sx = px0 * ss + half
     sy = py0 * ss + half
     a0, b0 = tpack[:, 0], tpack[:, 1]

@@ -13,6 +13,12 @@ One stable sort gives the streaming order; the run-bounds kernel
 (``bincount.sorted_run_bounds``) gives each key's run.  Equal keys may sit
 in another order than the reference's sort puts them: frames do not depend
 on it (the winner is an order-free minimum and phase D gathers by id).
+
+Each function takes an optional tile-row window ``[tile_row0, tile_row0 +
+tile_rows)``, a slab of a multi-device frame (``parallel/sharding.py``):
+AABB rows are clamped to the window's pixel rows, tiles are counted from
+its first row and the key space is the window's ``tile_rows * grid_w``
+tiles.  The default window is the whole grid.
 """
 
 from __future__ import annotations
@@ -46,21 +52,62 @@ def pixel_aabb_of(x0, y0, x1, y1, x2, y2, cfg):
     return pxmin, pxmax, pymin, pymax
 
 
-def stream_keys(valid, x0, y0, x1, y1, x2, y2, cfg):
-    """Per-row streaming key from snapped setup coordinates."""
+def window_rows(cfg, tile_row0: int = 0, tile_rows=None):
+    """(tile_rows, py_lo, py_hi) of the tile-row window [tile_row0,
+    tile_row0 + tile_rows): its row count (the whole grid by default) and
+    its first and last pixel rows on the screen.  A window that runs past
+    the frame's last row (a padded slab) stops at height - 1; one wholly
+    past it has py_lo > py_hi and keys nothing."""
+    if tile_rows is None:
+        tile_rows = cfg.grid_h
+    py_lo = tile_row0 * cfg.tile_h
+    py_hi = min((tile_row0 + tile_rows) * cfg.tile_h, cfg.height) - 1
+    return tile_rows, py_lo, py_hi
+
+
+def crop_window(vis_d, vis_t, cfg, whole: bool):
+    """A raster's (rows, cols) vis planes of a window cropped to the frame's
+    width, and for the whole grid (``whole``) to its height too: a slab
+    keeps its rows, and the assembled frame is cropped once."""
+    rows = cfg.height if whole else vis_d.shape[0]
+    return vis_d[:rows, : cfg.width], vis_t[:rows, : cfg.width]
+
+
+def stream_keys(valid, x0, y0, x1, y1, x2, y2, cfg, tile_row0: int = 0,
+                tile_rows=None):
+    """Per-row streaming key from snapped setup coordinates, for the
+    tile-row window (the whole grid by default)."""
     return keys_from_aabb(valid, *pixel_aabb_of(x0, y0, x1, y1, x2, y2, cfg),
-                          cfg)
+                          cfg, tile_row0, tile_rows)
 
 
-def keys_from_aabb(valid, pxmin, pxmax, pymin, pymax, cfg):
-    """Streaming keys from clamped pixel AABBs."""
+def stream_keys_from_aabb(valid, extx, exty, cfg, tile_row0: int = 0,
+                          tile_rows=None):
+    """Streaming keys from the setup kernel's packed pixel AABBs (``min |
+    max << 16``, each half signed, clamped to the frame), for the tile-row
+    window: the keys ``stream_keys`` gives the same rows."""
+    def lo(e):  # the low half, sign-extended
+        return ((e & 0xFFFF) ^ 0x8000) - 0x8000
+
+    return keys_from_aabb(valid, lo(extx), extx >> 16, lo(exty), exty >> 16,
+                          cfg, tile_row0, tile_rows)
+
+
+def keys_from_aabb(valid, pxmin, pxmax, pymin, pymax, cfg, tile_row0: int = 0,
+                   tile_rows=None):
+    """Streaming keys from frame-clamped pixel AABBs, for the tile-row
+    window: rows are clamped again to the window's pixel rows and tiles
+    counted from its first tile row."""
+    tile_rows, py_lo, py_hi = window_rows(cfg, tile_row0, tile_rows)
     gw = cfg.grid_w
-    n_tiles = cfg.n_tiles
+    n_tiles = tile_rows * gw
+    pymin = torch.clamp(pymin, min=py_lo)
+    pymax = torch.clamp(pymax, max=py_hi)
     live = valid & (pxmax >= pxmin) & (pymax >= pymin)
     tx0 = pxmin // cfg.tile_w
     tx1 = pxmax // cfg.tile_w
-    ty0 = pymin // cfg.tile_h
-    ty1 = pymax // cfg.tile_h
+    ty0 = pymin // cfg.tile_h - tile_row0
+    ty1 = pymax // cfg.tile_h - tile_row0
     spill_r = tx1 > tx0
     spill_d = ty1 > ty0
     wide = (tx1 - tx0 > 1) | (ty1 - ty0 > 1)
@@ -83,21 +130,24 @@ def keys_from_aabb(valid, pxmin, pxmax, pymin, pymax, cfg):
     return key.to(torch.int32)
 
 
-def sort_and_bounds(key, cfg):
-    """Stable sort of the streaming keys; returns (order, bounds) where
+def sort_and_bounds(key, cfg, tile_rows=None):
+    """Stable sort of the streaming keys of a window of ``tile_rows`` tile
+    rows (the whole grid by default); returns (order, bounds) where
     bounds[k] is the first sorted position with key >= k, for every key k in
     [0, n_tiles*12 + 2), followed by S."""
     from .bincount import sorted_run_bounds
 
+    n_tiles = window_rows(cfg, 0, tile_rows)[0] * cfg.grid_w
     key_sorted, order = torch.sort(key, stable=True)
-    starts = sorted_run_bounds(key_sorted, cfg.n_tiles * KEYS_PER_TILE + 2)
+    starts = sorted_run_bounds(key_sorted, n_tiles * KEYS_PER_TILE + 2)
     s = torch.full((1,), key.shape[0], dtype=torch.int32, device=key.device)
     return order.to(torch.int32), torch.cat([starts, s])
 
 
 def expand_wide_pairs(comb, order, bounds, cfg, wide_rows: int,
-                      wide_pairs: int):
-    """Expand the global wide run into exact per-tile (tile, row) pair runs.
+                      wide_pairs: int, tile_row0: int = 0, tile_rows=None):
+    """Expand the global wide run of the tile-row window (the whole grid by
+    default) into exact per-tile (tile, row) pair runs.
 
     The first rows of the wide run whose pair runs fit the budgets
     (``wide_rows`` rows, ``wide_pairs`` pairs) are consumed; the rest stay
@@ -108,8 +158,9 @@ def expand_wide_pairs(comb, order, bounds, cfg, wide_rows: int,
     pair_starts (n_tiles + 1,) i32 run starts, new_wide_start int)."""
     dev = comb.device
     i32 = torch.int32
+    tile_rows, py_lo, py_hi = window_rows(cfg, tile_row0, tile_rows)
     gw = cfg.grid_w
-    n_tiles = cfg.n_tiles
+    n_tiles = tile_rows * gw
     off = -cfg.min_coord
     s_rows = order.shape[0]
     ws = int(bounds[n_tiles * KEYS_PER_TILE])
@@ -132,12 +183,14 @@ def expand_wide_pairs(comb, order, bounds, cfg, wide_rows: int,
     pxmin, pxmax, pymin, pymax = pixel_aabb_of(
         xs[0], ys[0], xs[1], ys[1], xs[2], ys[2], cfg
     )
+    pymin = torch.clamp(pymin, min=py_lo)
+    pymax = torch.clamp(pymax, max=py_hi)
     live_r = live_row & (pxmax >= pxmin) & (pymax >= pymin)
     zero = torch.zeros_like(pxmin)
     tx0 = torch.where(live_r, pxmin // cfg.tile_w, zero)
     tx1 = torch.where(live_r, pxmax // cfg.tile_w, zero - 1)
-    ty0 = torch.where(live_r, pymin // cfg.tile_h, zero)
-    ty1 = torch.where(live_r, pymax // cfg.tile_h, zero - 1)
+    ty0 = torch.where(live_r, pymin // cfg.tile_h - tile_row0, zero)
+    ty1 = torch.where(live_r, pymax // cfg.tile_h - tile_row0, zero - 1)
     ntx = tx1 - tx0 + 1
     c = torch.where(live_r, ntx * (ty1 - ty0 + 1), zero)
     ends = torch.cumsum(c, 0, dtype=i32)

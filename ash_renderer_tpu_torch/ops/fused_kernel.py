@@ -39,6 +39,12 @@ address.  Both: 17 winner ids (-1 background), 18-23 zero.  Background
 pixels carry the NaN attributes the spec's zero fields give; consumers mask
 them by row 17.
 
+A slab of a multi-device frame (``parallel/sharding.py``) runs the same
+kernel over the tiles of its tile-row window: ``tile_row0`` (the slab's
+first tile row, a kernel argument) moves every sample row to the screen's,
+``tile_rows`` sizes the grid and the outputs, and the vis planes come back
+whole, for the frame to be cropped once.
+
 Phase F reads its tables (materials, mip levels, light, camera position)
 from a small int32 constants tensor (``shade.pack_shade_consts``) that each
 block stages in shared memory; the reference's select trees over those
@@ -51,7 +57,8 @@ import torch
 
 from .. import _build
 from .. import specmath as sm
-from .binsort import FINE_W, KEYS_PER_TILE, N_FINE, N_GRP
+from .binsort import (FINE_W, KEYS_PER_TILE, N_FINE, N_GRP, crop_window,
+                      window_rows)
 from .shade import interp_fields_stacked, shade_consts_layout, surface_prelight
 from .tritables import ID_COL, TBL_COLS
 
@@ -86,9 +93,11 @@ def build_range_meta(bounds, n_tiles: int, gw: int, pair_starts, wide_start):
     """(n_tiles * 7 * 2,) int32: [rs, re] per (tile, range).  Ranges per
     tile: own coarse run, ABOVE prefix {dr, r, d}, LEFT prefix {dr, r},
     DIAGONAL prefix {dr}, global wide run (from ``wide_start``), wide-pair
-    run (``pair_starts``), own fine run.  The reference's layout ends in one
-    more word, the first tile row of a mesh-sharded slab; the port renders
-    the whole frame on one device and leaves it out."""
+    run (``pair_starts``), own fine run.  ``n_tiles``: the tiles of the
+    window the bounds were sorted for.  The reference's layout ends in one
+    more word, the first tile row of a slab; the port passes it to the
+    kernel as an argument (``rasterize_distribute``'s ``tile_row0``) and
+    leaves it out."""
     dev = bounds.device
     i32 = torch.int32
     tt = torch.arange(n_tiles, device=dev)
@@ -138,29 +147,36 @@ def _check(name, x, dev, ndim, cols=None):
 
 
 def rasterize_distribute(rmeta, tbl_sorted, tbl_ext, comb, cfg,
-                         shade_mode=None, consts=None):
-    """Visibility + winner-field distribute + interpolation over the tile
-    grid, and with ``shade_mode`` set (``pipeline.shade_mode_for``) the
-    surface half of shading from ``consts`` (``shade.pack_shade_consts``).
-    Returns (vis_d, vis_t) cropped to (height, width) and planes
-    (n_tiles, 24, 1024) int32.  CPU tensors take the plain version; CUDA
+                         shade_mode=None, consts=None, tile_row0: int = 0,
+                         tile_rows=None):
+    """Visibility + winner-field distribute + interpolation over the tiles
+    of the tile-row window [tile_row0, tile_row0 + tile_rows) (the whole
+    grid by default), and with ``shade_mode`` set
+    (``pipeline.shade_mode_for``) the surface half of shading from
+    ``consts`` (``shade.pack_shade_consts``).  Returns (vis_d, vis_t) and
+    planes (n_tiles, 24, 1024) int32; the vis planes are cropped to
+    (height, width) for the whole grid and to the width only for a window
+    given by ``tile_rows``.  CPU tensors take the plain version; CUDA
     tensors launch the kernel (K3, or K3F with a shade mode)."""
     dev = rmeta.device
     if cfg.tile_h != TILE_H or cfg.tile_w != TILE_W:
         raise ValueError("rasterize_distribute: tiles must be 8x128")
     if dev.type == "cpu":
         return rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb,
-                                          cfg, shade_mode, consts)
+                                          cfg, shade_mode, consts, tile_row0,
+                                          tile_rows)
     if dev.type != "cuda":
         raise ValueError(f"rasterize_distribute: unsupported device {dev}")
-    n_tiles = cfg.n_tiles
+    whole = tile_rows is None
+    tile_rows = window_rows(cfg, tile_row0, tile_rows)[0]
+    n_tiles = tile_rows * cfg.grid_w
     _check("rmeta", rmeta, dev, 1)
     if rmeta.shape[0] != n_tiles * N_RANGES * RMETA_COLS:
         raise ValueError("rasterize_distribute: rmeta does not fit the grid")
     _check("tbl_sorted", tbl_sorted, dev, 2, TBL_COLS)
     _check("tbl_ext", tbl_ext, dev, 2, TBL_COLS)
     _check("comb", comb, dev, 2, TBL_COLS)
-    hp, wp = cfg.grid_h * TILE_H, cfg.grid_w * TILE_W
+    hp, wp = tile_rows * TILE_H, cfg.grid_w * TILE_W
     vis_d = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     vis_t = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     planes = torch.empty((n_tiles, OUT_COLS, N_PIX), dtype=torch.int32,
@@ -168,7 +184,7 @@ def rasterize_distribute(rmeta, tbl_sorted, tbl_ext, comb, cfg,
     args = (rmeta.data_ptr(), tbl_sorted.data_ptr(), tbl_ext.data_ptr(),
             comb.data_ptr(), vis_d.data_ptr(), vis_t.data_ptr(),
             planes.data_ptr(), n_tiles, cfg.grid_w, cfg.min_coord,
-            cfg.subpixel_scale)
+            cfg.subpixel_scale, tile_row0)
     if shade_mode is None:
         _build.launch(KERNEL, "ash_rasterize_distribute", dev, *args)
     else:
@@ -184,7 +200,7 @@ def rasterize_distribute(rmeta, tbl_sorted, tbl_ext, comb, cfg,
             KERNEL_F, "ash_rasterize_shade", dev, *args, consts.data_ptr(),
             consts.shape[0], m_n, t_n, int(has_m), int(has_a), int(has_l),
         )
-    return vis_d[: cfg.height, : cfg.width], vis_t[: cfg.height, : cfg.width], planes
+    return (*crop_window(vis_d, vis_t, cfg, whole), planes)
 
 
 def _range_pairs(rmeta, n_tiles):
@@ -200,7 +216,7 @@ def _range_pairs(rmeta, n_tiles):
     return run // N_RANGES, run % N_RANGES, pos
 
 
-def slot_pixel_boxes(rmeta, tbl_sorted, tbl_ext, cfg):
+def slot_pixel_boxes(rmeta, tbl_sorted, tbl_ext, cfg, tile_row0: int = 0):
     """The pixel box of every streamed (tile, slot), in streaming order: the
     tile's pixels whose sample ``px*ss + ss/2`` lies in the record's vertex
     bbox, and for own-fine rows only those in the record's 16-px window
@@ -209,10 +225,13 @@ def slot_pixel_boxes(rmeta, tbl_sorted, tbl_ext, cfg):
     (``csrc/raster.cu`` states why that is exact).  Returns (tile, range,
     box): tile and range index per slot, and (N, 4) int32 [col0, col1,
     row0, row1], inclusive and tile-local, empty where col0 > col1 or
-    row0 > row1."""
+    row0 > row1.  ``tile_row0``: the first tile row of the window the
+    range meta was built for (tile t lies at tile row t // grid_w +
+    tile_row0 of the screen)."""
     ss = cfg.subpixel_scale
     half = ss // 2
-    tile, rng, pos = _range_pairs(rmeta, cfg.n_tiles)
+    tile, rng, pos = _range_pairs(rmeta,
+                                  rmeta.shape[0] // (N_RANGES * RMETA_COLS))
     ext = rng == EXT_RANGE
     c = torch.empty((pos.shape[0], 3), dtype=torch.int32, device=rmeta.device)
     c[ext] = tbl_ext[pos[ext], :3]
@@ -224,7 +243,7 @@ def slot_pixel_boxes(rmeta, tbl_sorted, tbl_ext, cfg):
     py_lo = (y.amin(1) - half + ss - 1).div(ss, rounding_mode="floor")
     py_hi = (y.amax(1) - half).div(ss, rounding_mode="floor")
     x0 = (tile % cfg.grid_w).to(torch.int32) * TILE_W
-    y0 = (tile // cfg.grid_w).to(torch.int32) * TILE_H
+    y0 = (tile // cfg.grid_w + tile_row0).to(torch.int32) * TILE_H
     col0 = torch.clamp(px_lo - x0, min=0)
     col1 = torch.clamp(px_hi - x0, max=TILE_W - 1)
     fine = rng == FINE_RANGE
@@ -244,15 +263,20 @@ def box_pixels(box):
 
 
 def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
-                               shade_mode=None, consts=None):
+                               shade_mode=None, consts=None,
+                               tile_row0: int = 0, tile_rows=None):
     """rasterize_distribute in torch ops (any device): every streamed
     (tile, slot) pair is evaluated at the tile's 1024 pixels in chunks, and
     the per-pixel minimum of (d16, -id) is a scatter-min of a packed 64-bit
     key; with ``shade_mode`` set, rows 0-16 take the phase F layout
-    (``phase_f_plain``)."""
+    (``phase_f_plain``).  The window as in ``rasterize_distribute``."""
     dev = rmeta.device
     i32, i64 = torch.int32, torch.int64
-    n_tiles = cfg.n_tiles
+    whole = tile_rows is None
+    tile_rows = window_rows(cfg, tile_row0, tile_rows)[0]
+    n_tiles = tile_rows * cfg.grid_w
+    if rmeta.shape[0] != n_tiles * N_RANGES * RMETA_COLS:
+        raise ValueError("rasterize_distribute: rmeta does not fit the grid")
     gw = cfg.grid_w
     ss = cfg.subpixel_scale
     half = ss // 2
@@ -282,7 +306,7 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
         inv_area = sm.bitcast_f32(rec[:, 5:6])
         ids = rec[:, 6:7]
         tx = (t_c % gw).to(i32)[:, None]
-        ty = (t_c // gw).to(i32)[:, None]
+        ty = (t_c // gw + tile_row0).to(i32)[:, None]
         sx, sy = sm.pixel_sample_coords(tx * TILE_W + col, ty * TILE_H + row, ss)
         a0, b0, tl0 = sm.edge_coeffs(x1, y1, x2, y2)
         a1, b1, tl1 = sm.edge_coeffs(x2, y2, x0, y0)
@@ -315,7 +339,7 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
     planes = torch.zeros((n_tiles, OUT_COLS, N_PIX), dtype=i32, device=dev)
     tt = torch.arange(n_tiles, device=dev)[:, None]
     px = (tt % gw) * TILE_W + (pix % TILE_W)
-    py = (tt // gw) * TILE_H + pix // TILE_W
+    py = (tt // gw + tile_row0) * TILE_H + pix // TILE_W
     attr, duv, mat = phase_e(o, px.to(i32), py.to(i32), cfg)
     if shade_mode is None:
         planes[:, :VIS_ROW] = torch.cat(
@@ -327,15 +351,14 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
     else:
         planes[:, :VIS_ROW] = phase_f_plain(attr, duv, mat, shade_mode, consts)
     planes[:, VIS_ROW] = vis_t.reshape(n_tiles, N_PIX)
-    hp, wp = cfg.grid_h * TILE_H, cfg.grid_w * TILE_W
+    hp, wp = tile_rows * TILE_H, gw * TILE_W
 
     def to_image(v):
-        return (
-            v.reshape(cfg.grid_h, gw, TILE_H, TILE_W).permute(0, 2, 1, 3)
-            .reshape(hp, wp)[: cfg.height, : cfg.width]
-        )
+        return (v.reshape(tile_rows, gw, TILE_H, TILE_W).permute(0, 2, 1, 3)
+                .reshape(hp, wp))
 
-    return to_image(vis_d), to_image(vis_t), planes
+    return (*crop_window(to_image(vis_d), to_image(vis_t), cfg, whole),
+            planes)
 
 
 def phase_e(o, px, py, cfg):

@@ -27,6 +27,13 @@ an ``atomicMin`` of the packed (d16, -id) key in shared memory.  What
 bounds it on the card: device memory, the records' 16 words each and the
 two vis planes (~39 MB on the subdiv-8 classic frame); ``box_pixels``
 counts the work the boxes leave.
+
+A slab of a multi-device frame (``parallel/sharding.py``) runs it over the
+``tile_rows`` tile rows its records were binned for
+(``binning.bin_triangles``' window): the records carry their edge values
+at their tile's sample origin on the screen and ``rec_box`` is
+tile-relative, so neither the kernel nor the plain version needs the
+slab's first row; the vis planes come back with the slab's rows whole.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 from .. import _build
 from .. import specmath as sm
 from .binning import F32_ROWS, RECORD_ROWS, unpack_box
+from .binsort import crop_window, window_rows
 
 KERNEL = "K4_raster_classic"
 TILE_H = 16  # the classic pipeline's tile height (the Renderer's too)
@@ -50,22 +58,26 @@ def _check_cfg(cfg):
 
 
 def rasterize_visibility(rec_i, rec_f, tile_start, tile_count, cfg,
-                         rec_box=None):
+                         rec_box=None, tile_rows=None):
     """rec_i (14, P) int32 and rec_f (1, P) float32 records, tile_start and
     tile_count (n_tiles,) int32, rec_box (1, P) int32 the records' pixel
     boxes (``binning.bin_triangles``).  Returns (vis_d16, vis_tri) int32
-    cropped to (height, width).  CPU tensors take the plain version, which
-    needs no box; CUDA tensors launch the kernel, which requires it."""
+    cropped to (height, width), or for a window of ``tile_rows`` tile rows
+    (n_tiles = tile_rows * grid_w) to the width only.  CPU tensors take the
+    plain version, which needs no box; CUDA tensors launch the kernel,
+    which requires it."""
     _check_cfg(cfg)
     dev = rec_i.device
     if dev.type == "cpu":
         return rasterize_visibility_plain(rec_i, rec_f, tile_start,
-                                          tile_count, cfg)
+                                          tile_count, cfg, tile_rows)
     if dev.type != "cuda":
         raise ValueError(f"rasterize_visibility: unsupported device {dev}")
     if rec_box is None:
         raise ValueError("rasterize_visibility: the CUDA kernel needs rec_box")
-    n_tiles = cfg.n_tiles
+    whole = tile_rows is None
+    tile_rows = window_rows(cfg, 0, tile_rows)[0]
+    n_tiles = tile_rows * cfg.grid_w
     p = rec_i.shape[1]
     for name, x, dtype, shape in (
         ("rec_i", rec_i, torch.int32, (RECORD_ROWS, p)),
@@ -78,7 +90,7 @@ def rasterize_visibility(rec_i, rec_f, tile_start, tile_count, cfg,
                 or not x.is_contiguous()):
             raise ValueError(f"rasterize_visibility: bad {name} {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
-    hp, wp = cfg.grid_h * TILE_H, cfg.grid_w * TILE_W
+    hp, wp = tile_rows * TILE_H, cfg.grid_w * TILE_W
     vis_d = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     vis_t = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     _build.launch(
@@ -87,7 +99,7 @@ def rasterize_visibility(rec_i, rec_f, tile_start, tile_count, cfg,
         tile_start.data_ptr(), tile_count.data_ptr(), vis_d.data_ptr(),
         vis_t.data_ptr(), p, n_tiles, cfg.grid_w, cfg.subpixel_scale,
     )
-    return vis_d[: cfg.height, : cfg.width], vis_t[: cfg.height, : cfg.width]
+    return crop_window(vis_d, vis_t, cfg, whole)
 
 
 def box_pixels(rec_box):
@@ -100,14 +112,17 @@ def box_pixels(rec_box):
     return w.long() * h.long()
 
 
-def rasterize_visibility_plain(rec_i, rec_f, tile_start, tile_count, cfg):
+def rasterize_visibility_plain(rec_i, rec_f, tile_start, tile_count, cfg,
+                               tile_rows=None):
     """rasterize_visibility in torch ops (any device): the tile's records
     in chunks, each evaluated at its tile's 2048 pixels, and the per-pixel
     minimum of (d16, -id) as a scatter-min of a packed 64-bit key."""
     _check_cfg(cfg)
     dev = rec_i.device
     i32, i64 = torch.int32, torch.int64
-    n_tiles = cfg.n_tiles
+    whole = tile_rows is None
+    tile_rows = window_rows(cfg, 0, tile_rows)[0]
+    n_tiles = tile_rows * cfg.grid_w
     ss = cfg.subpixel_scale
     counts = tile_count.long()
     total = int(counts.sum())
@@ -134,14 +149,12 @@ def rasterize_visibility_plain(rec_i, rec_f, tile_start, tile_count, cfg):
         dst = (t_c[:, None] * N_PIX + pix).expand_as(key)
         best.scatter_reduce_(0, dst[cov], key[cov], reduce="amin")
 
-    hp, wp = cfg.grid_h * TILE_H, cfg.grid_w * TILE_W
+    hp, wp = tile_rows * TILE_H, cfg.grid_w * TILE_W
 
     def to_image(v):
-        return (
-            v.reshape(cfg.grid_h, cfg.grid_w, TILE_H, TILE_W).permute(0, 2, 1, 3)
-            .reshape(hp, wp)[: cfg.height, : cfg.width]
-        )
+        return (v.reshape(tile_rows, cfg.grid_w, TILE_H, TILE_W)
+                .permute(0, 2, 1, 3).reshape(hp, wp))
 
     vis_d = (best >> 32).to(i32)
     vis_t = (0x7FFFFFFF - (best & 0xFFFFFFFF)).to(i32)
-    return to_image(vis_d), to_image(vis_t)
+    return crop_window(to_image(vis_d), to_image(vis_t), cfg, whole)

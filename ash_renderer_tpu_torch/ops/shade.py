@@ -342,14 +342,16 @@ def pack_setup_table(su):
 
 
 def shade(vis_tri, su, attrs, shade_mode, consts, atlas=None, light=None,
-          cfg=None, clear_color=(0.0, 0.0, 0.0, 1.0), cf=None, specular=True):
+          cfg=None, clear_color=(0.0, 0.0, 0.0, 1.0), cf=None, specular=True,
+          py_offset: int = 0):
     """Shade the classic pipeline's visibility buffer into (H, W, 4) f32
     RGBA at render resolution: each pixel gathers its winner's setup row
     (``pack_setup_table``) and its three corner rows of the combined
     attribute table ``attrs`` (VA, 12), then ``shade_gathered``.
     ``shade_mode`` and ``consts``: the scene's ``pipeline.surface_mode``
     and ``pack_shade_consts``; ``cf`` and ``specular``: see
-    ``shade_gathered``."""
+    ``shade_gathered``; ``py_offset``: the screen row of ``vis_tri``'s
+    first row (a slab's, ``parallel/sharding.py``)."""
     valid = vis_tri >= 0
     packed = _take(pack_setup_table(su), vis_tri)  # (H, W, 14)
     g = {k: sm.bitcast_f32(packed[..., i]) if k in SETUP_F32_FIELDS
@@ -357,12 +359,12 @@ def shade(vis_tri, su, attrs, shade_mode, consts, atlas=None, light=None,
     corners = [_take(attrs, g[k]).movedim(-1, -2) for k in ("v0", "v1", "v2")]
     return shade_gathered(valid, g, *corners, shade_mode, consts, atlas=atlas,
                           light=light, cfg=cfg, clear_color=clear_color,
-                          cf=cf, specular=specular)
+                          cf=cf, specular=specular, py_offset=py_offset)
 
 
 def shade_gathered(valid, g, a0, a1, a2, shade_mode, consts, atlas=None,
                    light=None, cfg=None, clear_color=(0.0, 0.0, 0.0, 1.0),
-                   cf=None, specular=True):
+                   cf=None, specular=True, py_offset: int = 0):
     """Shading from already fetched winner data: ``g`` the per-pixel setup
     fields (H, W) and the corner attributes a0-a2 (H, 12, W), pixel (x, y)
     at [y, x].  The reference's ``interp_fields`` + ``shade_surface`` are
@@ -371,11 +373,13 @@ def shade_gathered(valid, g, a0, a1, a2, shade_mode, consts, atlas=None,
     ``cf``: the float words of ``consts`` (``surface_prelight``);
     ``specular=False`` leaves out the specular term, as the reference's
     ``shade_surface`` does when it is given no camera position.
-    Returns (H, W, 4) f32 RGBA."""
+    ``py_offset``: the screen row of the first row.  Returns (H, W, 4) f32
+    RGBA."""
     h, w = valid.shape
     dev = valid.device
     px = torch.arange(w, dtype=I32, device=dev).expand(h, w)
-    py = torch.arange(h, dtype=I32, device=dev)[:, None].expand(h, w)
+    py = (torch.arange(h, dtype=I32, device=dev)[:, None]
+          + py_offset).expand(h, w)
     attr, duv = interp_fields_stacked(g, a0, a1, a2, px, py, cfg)
     pre = surface_prelight(attr, duv, g["mat"], shade_mode, consts, cf=cf)
     return combine_from_prelight(

@@ -32,6 +32,12 @@ scenes) replaces stages 1-3 with the classic setup (``transform_vertices``,
 ``geometry_device``), the streaming keys of its setup rows and
 ``tritables.build_comb_table`` (``render_front_fallback``), then runs
 stages 4-7 as above.
+
+``render_frame``, ``render_front`` and ``_raster_shade`` also render one
+slab of a multi-device frame (``parallel/sharding.py``): the tile-row
+window ``[tile_row0, tile_row0 + tile_rows)``.  Geometry and K1 run whole;
+keys, bounds, the wide expansion, binning and the rasters take the window,
+and the slab's frame rows come back uncropped.
 """
 
 from __future__ import annotations
@@ -56,9 +62,11 @@ class FrameStatics:
     has_light: bool
 
 
-def _clip_tail_into(statics, tblT, tri_v, tri_mat, flags, comb):
+def _clip_tail_into(statics, tblT, tri_v, tri_mat, flags, comb,
+                    tile_row0: int = 0, tile_rows=None):
     """Clip tail + stats; tail comb rows are written in place into the rows
-    reserved after the main block (comb row T onward).  Returns (comb,
+    reserved after the main block (comb row T onward), and keyed for the
+    tile-row window (the whole grid by default).  Returns (comb,
     keys_tail, gstats)."""
     cfg = statics.cfg
     st = statics.settings
@@ -70,7 +78,7 @@ def _clip_tail_into(statics, tblT, tri_v, tri_mat, flags, comb):
     comb[t:] = tritables.comb_rows(tail_f, ta0, ta1, ta2, cfg, id_base=t)
     keys_tail = binsort.stream_keys(
         tail_f["valid"], tail_f["x0"], tail_f["y0"], tail_f["x1"],
-        tail_f["y1"], tail_f["x2"], tail_f["y2"], cfg,
+        tail_f["y1"], tail_f["x2"], tail_f["y2"], cfg, tile_row0, tile_rows,
     )
     gstats = {
         "clip_overflow": cstats["clip_overflow"],
@@ -82,14 +90,17 @@ def _clip_tail_into(statics, tblT, tri_v, tri_mat, flags, comb):
     return comb, keys_tail, gstats
 
 
-def expand_table(statics, comb, order, bounds):
+def expand_table(statics, comb, order, bounds, tile_row0: int = 0,
+                 tile_rows=None):
     """Wide-pair expansion + range metadata + the live-prefix table gathers
-    on the sorted order.  Returns (rmeta, tbl_sorted, tbl_ext, sstats)."""
+    on the sorted order of the tile-row window (the whole grid by default).
+    Returns (rmeta, tbl_sorted, tbl_ext, sstats)."""
     cfg = statics.cfg
     st = statics.settings
-    n_tiles = cfg.n_tiles
+    n_tiles = binsort.window_rows(cfg, tile_row0, tile_rows)[0] * cfg.grid_w
     pair_rows, pair_starts, new_ws = binsort.expand_wide_pairs(
-        comb, order, bounds, cfg, st.wide_rows, st.wide_pairs
+        comb, order, bounds, cfg, st.wide_rows, st.wide_pairs, tile_row0,
+        tile_rows
     )
     rmeta = fused_kernel.build_range_meta(
         bounds, n_tiles, cfg.grid_w, pair_starts, new_ws
@@ -113,13 +124,15 @@ def _no_stage(name):
 
 
 def render_frame(statics: FrameStatics, state, model_mats, mvp_mats,
-                 camera_pos, local_tri=None, on_stage=_no_stage):
-    """One classic-pipeline frame on ``state``'s device (16x128 tiles).
-    ``local_tri``: the meshlet-local corner ids of a meshlet-packed scene,
-    which take the corner gather through kernel K5.  Returns (rgba8 (H, W,
-    4) uint8, aux dict with vis_d16, vis_tri and the geometry and binning
-    counters).  ``on_stage(name)`` is called as each stage has been
-    issued."""
+                 camera_pos, local_tri=None, on_stage=_no_stage,
+                 tile_row0: int = 0, tile_rows=None):
+    """One classic-pipeline frame on ``state``'s device (16x128 tiles), or
+    with ``tile_rows`` the slab of that many tile rows from ``tile_row0``
+    (its rows uncropped).  ``local_tri``: the meshlet-local corner ids of a
+    meshlet-packed scene, which take the corner gather through kernel K5.
+    Returns (rgba8 (H, W, 4) uint8, aux dict with vis_d16, vis_tri and the
+    geometry and binning counters).  ``on_stage(name)`` is called as each
+    stage has been issued."""
     cfg = statics.cfg
     st = statics.settings
     clip, attrs = geometry.transform_vertices(
@@ -133,10 +146,11 @@ def render_frame(statics: FrameStatics, state, model_mats, mvp_mats,
     )
     on_stage("geometry")
     rec_i, rec_f, rec_box, tile_start, tile_count, bstats = (
-        binning.bin_triangles(su, cfg, st.max_pairs))
+        binning.bin_triangles(su, cfg, st.max_pairs, tile_row0, tile_rows))
     on_stage("binning")
     vis_d, vis_t = raster_visibility.rasterize_visibility(
-        rec_i, rec_f, tile_start, tile_count, cfg, rec_box=rec_box
+        rec_i, rec_f, tile_start, tile_count, cfg, rec_box=rec_box,
+        tile_rows=tile_rows
     )
     on_stage("raster_K4")
     atlas = state.atlas if statics.has_atlas else None
@@ -145,37 +159,47 @@ def render_frame(statics: FrameStatics, state, model_mats, mvp_mats,
     consts = shade.pack_shade_consts(mode, state.materials, atlas, light,
                                      camera_pos)
     rgba = shade.shade(vis_t, su, attrs_full, mode, consts, atlas=atlas,
-                       light=light, cfg=cfg, clear_color=st.clear_color)
+                       light=light, cfg=cfg, clear_color=st.clear_color,
+                       py_offset=tile_row0 * cfg.tile_h)
     rgba8 = shade.resolve_and_pack(rgba, st.supersample, st.srgb_output)
     on_stage("shade_pack")
     return rgba8, {"vis_d16": vis_d, "vis_tri": vis_t, **gstats, **bstats}
 
 
-def render_front(statics, state, model_mats, mvp_mats, on_stage=_no_stage):
-    """Stages 1-5.  Returns (rmeta, tbl_sorted, tbl_ext, comb, stats).
-    ``on_stage(name)`` is called as each stage has been issued (a timing
-    probe records a CUDA event there)."""
+def render_front(statics, state, model_mats, mvp_mats, on_stage=_no_stage,
+                 tile_row0: int = 0, tile_rows=None):
+    """Stages 1-5, for the whole grid or, with ``tile_rows``, the slab of
+    that many tile rows from ``tile_row0``: the slab keys K1's rows from
+    its packed pixel AABBs (``binsort.stream_keys_from_aabb``), as K1's own
+    keys are the whole grid's.  Returns (rmeta, tbl_sorted, tbl_ext, comb,
+    stats).  ``on_stage(name)`` is called as each stage has been issued (a
+    timing probe records a CUDA event there)."""
     st = statics.settings
+    cfg = statics.cfg
     tblT = setup_kernel.transform_vertices_T(
         state.positions, state.vert_obj, state.normals, state.colors,
         state.uvs, model_mats, mvp_mats,
     )
     on_stage("transform")
-    comb, keys_main, flags, _, _ = setup_kernel.triangle_setup(
-        tblT, state.ltT, state.matT, statics.cfg,
+    comb, keys_main, flags, extx, exty = setup_kernel.triangle_setup(
+        tblT, state.ltT, state.matT, cfg,
         tail_rows=st.clip_budget * geometry.MAX_CLIP_TRIS,
     )
+    if tile_rows is not None:
+        keys_main = binsort.stream_keys_from_aabb(
+            (flags & 1).bool(), extx, exty, cfg, tile_row0, tile_rows)
     on_stage("setup_K1")
     comb, keys_tail, gstats = _clip_tail_into(
-        statics, tblT, state.tri_v, state.tri_mat, flags, comb
+        statics, tblT, state.tri_v, state.tri_mat, flags, comb, tile_row0,
+        tile_rows
     )
     on_stage("clip_tail")
     order, bounds = binsort.sort_and_bounds(
-        torch.cat([keys_main, keys_tail]), statics.cfg
+        torch.cat([keys_main, keys_tail]), cfg, tile_rows
     )
     on_stage("sort_bounds_K2")
     rmeta, tbl_sorted, tbl_ext, sstats = expand_table(
-        statics, comb, order, bounds
+        statics, comb, order, bounds, tile_row0, tile_rows
     )
     on_stage("expand_meta_gather")
     return rmeta, tbl_sorted, tbl_ext, comb, {**gstats, **sstats}
@@ -258,17 +282,22 @@ def shade_mode_for(statics, materials, atlas, light):
     return mode
 
 
-def _shade_from_planes(statics, planes, mode, consts, phase_f, atlas, light):
+def _shade_from_planes(statics, planes, mode, consts, phase_f, atlas, light,
+                       full_frame: bool = True):
     """Shade the (n_tiles, 24, 1024) planes tile-flat, then lay the RGBA out
-    as the (height, width) image.  ``mode`` and ``consts``: the scene's
-    ``surface_mode`` and its packed tables; ``phase_f``: whether the planes
-    hold the phase F layout (the surface half is done) or phase E's (it is
-    run here, ``shade.surface_prelight``).  ``atlas`` and ``light`` are None
-    where the scene has none."""
+    as the image of their n_tiles / grid_w tile rows, cropped to the width,
+    and to the height only for the ``full_frame`` (a slab's rows stay
+    whole).  ``mode`` and ``consts``: the scene's ``surface_mode`` and its
+    packed tables; ``phase_f``: whether the planes hold the phase F layout
+    (the surface half is done) or phase E's (it is run here,
+    ``shade.surface_prelight``).  ``atlas`` and ``light`` are None where
+    the scene has none."""
     cfg = statics.cfg
     st = statics.settings
     th, tw = cfg.tile_h, fused_kernel.TILE_W
-    gw, gh = cfg.grid_w, cfg.grid_h
+    gw = cfg.grid_w
+    gh = planes.shape[0] // gw
+    rows = cfg.height if full_frame else gh * th
     _, _, has_m, has_a, has_l = mode
     pf = planes.view(torch.float32)
     if phase_f:
@@ -289,7 +318,7 @@ def _shade_from_planes(statics, planes, mode, consts, phase_f, atlas, light):
     def to_image(x):
         return (
             x.reshape(gh, gw, th, tw, 4).permute(0, 2, 1, 3, 4)
-            .reshape(gh * th, gw * tw, 4)[: cfg.height, : cfg.width]
+            .reshape(gh * th, gw * tw, 4)[:rows, : cfg.width]
         )
 
     if st.supersample == 1:
@@ -336,11 +365,13 @@ def render_frame_fused_staged(statics: FrameStatics, state, model_mats,
                          on_stage)
 
 
-def _raster_shade(statics, state, tables, camera_pos, stats, on_stage):
+def _raster_shade(statics, state, tables, camera_pos, stats, on_stage,
+                  tile_row0: int = 0, tile_rows=None):
     """Stages 6-7 of a fused frame: K3 (or K3F when ``shade_mode_for``
     gives a mode) on the front's ``tables`` (rmeta, tbl_sorted, tbl_ext,
-    comb), then shade + pack.  Returns (rgba8, aux with vis_d16, vis_tri
-    and ``stats``)."""
+    comb), then shade + pack; for the whole grid or the slab of
+    ``tile_rows`` tile rows from ``tile_row0`` the tables were built for.
+    Returns (rgba8, aux with vis_d16, vis_tri and ``stats``)."""
     atlas = state.atlas if statics.has_atlas else None
     light = state.light if statics.has_light else None
     mode = surface_mode(statics, state.materials, atlas, light)
@@ -349,9 +380,11 @@ def _raster_shade(statics, state, tables, camera_pos, stats, on_stage):
     smode = shade_mode_for(statics, state.materials, atlas, light)
     vis_d, vis_t, planes = fused_kernel.rasterize_distribute(
         *tables, statics.cfg, smode, None if smode is None else consts,
+        tile_row0=tile_row0, tile_rows=tile_rows,
     )
     on_stage("raster_K3")
     rgba8 = _shade_from_planes(statics, planes, mode, consts,
-                               smode is not None, atlas, light)
+                               smode is not None, atlas, light,
+                               full_frame=tile_rows is None)
     on_stage("shade_pack")
     return rgba8, {"vis_d16": vis_d, "vis_tri": vis_t, **stats}

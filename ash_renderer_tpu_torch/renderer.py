@@ -17,6 +17,11 @@ classic below.
 Per frame the host composes the per-object MVP matrices with the oracle's
 ``compose_mvp`` (numpy, so both start from the same bits), and the
 pipeline runs on the device.
+
+Under a mesh (``Renderer(..., mesh=parallel.make_render_mesh([...]))``, or
+``settings.n_devices``) the frame is rendered in row slabs, one per mesh
+entry (``parallel/sharding.py``): the scene state is uploaded once per
+distinct device, and there is no front cache, as in the reference.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from .config import RendererSettings, derive_raster_config
 from .profiling import FrameStats
 from .scene import Scene
 from .ops import raster_visibility
+from .parallel import (make_render_mesh, render_frame_sharded,
+                       render_frame_sharded_fused)
 from .oracle.raster_cpu import compose_mvp
 from .pipeline import (FrameStatics, FrontCache, _no_stage, render_frame,
                        render_frame_fused_staged)
@@ -62,13 +69,48 @@ def frame_statics(settings: RendererSettings, n_tris: int, has_atlas: bool,
                         has_light=has_light)
 
 
+def resolve_mesh(settings: RendererSettings, device, mesh=None):
+    """The slab mesh of a renderer on ``device``: an explicit ``mesh`` wins;
+    else ``settings.n_devices`` takes cuda:0 .. n-1 on a CUDA device
+    (raising if fewer cards exist) or n slabs of the CPU; else None (one
+    device, no slabs)."""
+    if mesh is not None:
+        return make_render_mesh(mesh)
+    n = settings.n_devices
+    if n is None:
+        return None
+    if n < 1:
+        raise ValueError(f"n_devices={n}")
+    if device.type == "cuda":
+        have = torch.cuda.device_count()
+        if have < n:
+            raise ValueError(f"n_devices={n} but only {have} CUDA devices "
+                             "exist")
+        return make_render_mesh(torch.device("cuda", i) for i in range(n))
+    if device.type == "cpu":
+        return make_render_mesh([device] * n)
+    raise ValueError(f"n_devices on an unsupported device {device}")
+
+
 class Renderer:
     def __init__(self, scene: Scene, settings: Optional[RendererSettings] = None,
-                 *, device):
+                 *, device=None, mesh=None):
         """device: the torch device every tensor of this renderer lives on
-        (for example ``torch.device("cuda", 0)``).  Required: the renderer
-        never picks one itself."""
+        (for example ``torch.device("cuda", 0)``).  mesh: the devices of a
+        frame rendered in row slabs (``parallel.make_render_mesh``); it
+        wins over ``settings.n_devices``, and its first device is the
+        renderer's.  One of the two is required: the renderer never picks
+        a device itself."""
+        if mesh is not None:
+            mesh = make_render_mesh(mesh)
+            if device is not None and torch.device(device) != mesh[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh[0]}")
+            device = mesh[0]
+        if device is None:
+            raise TypeError("Renderer needs a device or a mesh")
         self.device = torch.device(device)
+        self._mesh_arg = mesh
         self.stats = FrameStats()
         self._build_settings_dependent(scene, settings or RendererSettings())
 
@@ -76,11 +118,6 @@ class Renderer:
     def _build_settings_dependent(self, scene: Scene, settings: RendererSettings):
         if settings.pipeline not in ("auto", "fused", "classic"):
             raise ValueError(f"unknown pipeline {settings.pipeline!r}")
-        if settings.n_devices is not None:
-            raise NotImplementedError(
-                "multi-device rendering is not ported yet (ROADMAP queue 1 "
-                "item 16)"
-            )
         if settings.pipeline == "auto":
             # the reference's rule, with the card in the TPU's place: fused
             # from 4096 triangles (counted over the meshes), else classic
@@ -92,12 +129,16 @@ class Renderer:
             raise ValueError("the port's raster kernel uses 8-row tiles")
         self.scene = scene
         self.settings = settings
+        self.mesh = resolve_mesh(settings, self.device, self._mesh_arg)
         # the fused pipeline's setup kernel loads corners by meshlet-local
         # index; the classic one takes the plain packing
         self.packed = scene.pack(meshlets=settings.pipeline == "fused")
-        self.state = state_mod.upload(
-            self.packed, scene.materials, scene.atlas, scene.light, self.device
-        )
+        self.states = {
+            d: state_mod.upload(self.packed, scene.materials, scene.atlas,
+                                scene.light, d)
+            for d in dict.fromkeys(self.mesh or (self.device,))
+        }
+        self.state = self.states[self.mesh[0] if self.mesh else self.device]
         self._build_resize_dependent()
 
     # ----- resize-dependent tier ----------------------------------------
@@ -111,10 +152,10 @@ class Renderer:
         self.cfg = self.statics.cfg
         self.ring = FrameRing(st.frames_in_flight)
         # lives in this tier so any settings or resize rebuild drops it; the
-        # classic pipeline has no front to reuse
+        # classic pipeline and the slabs have no front to reuse
         self._front_cache = (
             FrontCache() if st.front_coherence and st.pipeline != "classic"
-            else None)
+            and self.mesh is None else None)
 
     # ----- public API ----------------------------------------------------
     def update_settings(self, settings: RendererSettings, scene: Scene = None):
@@ -155,7 +196,12 @@ class Renderer:
         mvp_t = torch.from_numpy(mvp).to(dev)
         cam_t = torch.from_numpy(camera.position.astype(F32)).to(dev)
         on_stage("mvp_upload")
-        if st.pipeline == "classic":
+        if self.mesh is not None:
+            frame_fn = (render_frame_sharded if st.pipeline == "classic"
+                        else render_frame_sharded_fused)
+            rgba8, aux = frame_fn(self.statics, self.mesh, self.states, mm_t,
+                                  mvp_t, cam_t, on_stage=on_stage)
+        elif st.pipeline == "classic":
             rgba8, aux = render_frame(self.statics, self.state, mm_t, mvp_t,
                                       cam_t, on_stage=on_stage)
         else:

@@ -121,7 +121,26 @@ lines and seconds; any failure raises and the exit code is non-zero):
    CPU's bit for bit (unlit and lit); card gradients (vertex colours, base
    colour, specular, light direction, colour, ambient) equal the CPU's
    within rtol 1e-4 / atol 1e-6; ``fit_to_image`` converges on the card as
-   on the CPU, with ms per step.
+   on the CPU, with ms per step;
+19. row slabs (``parallel``) on the card, emulated as a mesh that repeats
+   ``cuda:0`` when there is one card, every kernel's plain version made to
+   raise and the launch counts zeroed before the counted frames: config4
+   subdiv 8 at 1920x1080 in 8 slabs of 17 tile rows (the last padded past
+   the screen) equals its golden under "auto" (K3) and "on" (K3F), subdiv
+   5 in 2 and 3 slabs its golden; fly-by frame 12 in 8 slabs equals the
+   single-device frame with the worst slab's wide, pair and clip counters
+   live; static -> moved -> static in 8 slabs; the reference scene
+   (classic, K4) in 2 and 3 slabs its golden, and the meshlet-packed
+   subdiv-5 classic frame through ``render_frame_sharded(local_tri=)``
+   (K5 + K4) its golden; config5 frame 0 (2x SSAA) in 2 slabs equals its
+   single-device frame; K1-K5 and K3F must have launched, and
+   ``n_devices`` beyond the cards present must raise.  With two cards or
+   more, the same frames on distinct cards.  Then K3 and K3F on a middle
+   slab's tables (and K3 on a fly-by slab) against their plain versions at
+   the slab's row origin, bit for bit, timed; CUDA-event frame ms at
+   subdiv 8, static, front cache off, on 1 device and in 2 and 8 slabs in
+   turns; the 8-slab frame's stage ms summed over the slabs and its ms per
+   slab; peak device memory.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -1655,6 +1674,252 @@ def diffrender_checks(dev, card: str) -> None:
         f"CPU {mc:.3f}")
 
 
+# the plain versions a CUDA mesh must never take (phase 19 makes each raise)
+PLAIN_VERSIONS = (
+    ("ops.setup_kernel", "triangle_setup_plain"),
+    ("ops.bincount", "sorted_run_bounds_plain"),
+    ("ops.fused_kernel", "rasterize_distribute_plain"),
+    ("ops.raster_visibility", "rasterize_visibility_plain"),
+    ("ops.meshlet_gather", "gather_tri_rows_plain"),
+)
+SLAB_KERNELS = ("K1_setup", "K2_run_bounds", "K3_raster", "K3F_raster_shade",
+                "K4_raster_classic", "K5_gather_rows")
+
+
+class PlainVersionsRaise:
+    """Within the block, every kernel's plain version raises: the wrappers
+    on CUDA tensors must launch their kernels."""
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = []
+        for mod, name in PLAIN_VERSIONS:
+            m = importlib.import_module(f"ash_renderer_tpu_torch.{mod}")
+            self.saved.append((m, name, getattr(m, name)))
+
+            def refuse(*args, _name=name, **kw):
+                raise RuntimeError(f"{_name} ran on a CUDA mesh")
+
+            setattr(m, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+        return False
+
+
+def compare_slab_raster(r, cam, tile_row0: int, rows_per: int, label: str,
+                        errs: dict) -> None:
+    """K3 (or K3F, when renderer ``r``'s settings give a shade mode) on the
+    tables of the slab [tile_row0, tile_row0 + rows_per) against its plain
+    version at the slab's row origin, bit for bit, with the kernel's and
+    the plain version's CUDA-event ms."""
+    import torch
+
+    from ash_renderer_tpu_torch import pipeline
+    from ash_renderer_tpu_torch.ops import fused_kernel as fk
+    from ash_renderer_tpu_torch.ops import shade
+
+    s, cfg = r.state, r.cfg
+    mm_t, mvp_t, _ = front_inputs(r, cam)
+    atlas = s.atlas if r.statics.has_atlas else None
+    light = s.light if r.statics.has_light else None
+    smode = pipeline.shade_mode_for(r.statics, s.materials, atlas, light)
+    consts = None if smode is None else shade.pack_shade_consts(
+        smode, s.materials, atlas, light,
+        torch.from_numpy(cam.position.astype("float32")).to(r.device))
+    rmeta, tbl_sorted, tbl_ext, comb, stats = pipeline.render_front(
+        r.statics, s, mm_t, mvp_t, tile_row0=tile_row0, tile_rows=rows_per)
+    win = dict(tile_row0=tile_row0, tile_rows=rows_per)
+    name = "K3" if smode is None else "K3F"
+    (vd, vt, pl), k_ms = run_timed(lambda: fk.rasterize_distribute(
+        rmeta, tbl_sorted, tbl_ext, comb, cfg, smode, consts, **win), 10)
+    (vd_p, vt_p, pl_p), p_ms = run_timed(
+        lambda: fk.rasterize_distribute_plain(
+            rmeta, tbl_sorted, tbl_ext, comb, cfg, smode, consts, **win), 1)
+    valid = (pl_p[:, fk.VIS_ROW, :] >= 0)[:, None, :]
+    pad = fk.VIS_ROW - 1 if smode is None else fk.F_TEXMASK + 1
+    err = _max_err([
+        (vd, vd_p), (vt, vt_p),
+        (torch.where(valid, pl, 0), torch.where(valid, pl_p, 0)),
+        (pl[:, pad:], pl_p[:, pad:]),
+    ])
+    require(err == 0, f"{name} differs from its plain version on slab rows "
+            f"{tile_row0}+{rows_per} ({label}): {err} "
+            f"({int((vt != vt_p).sum())} winner ids differ)")
+    require(vt.shape[0] == rows_per * fk.TILE_H and int((vt >= 0).sum()) > 0,
+            f"{label}: the slab covers nothing")
+    errs[name] = max(errs.get(name, 0), err)
+    say(f"{label}: {name} on slab tile rows {tile_row0}-"
+        f"{tile_row0 + rows_per - 1} bit-equal to plain; covered px "
+        f"{int((vt >= 0).sum())}, live rows {int(stats['live_rows'])}, "
+        f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+
+
+def slab_checks(dev, card: str, errs: dict, head5, head8) -> dict:
+    """Phase 19: row slabs (``parallel``) on the card.  Every counted
+    frame runs with the plain versions made to raise; returns the launch
+    counts of those frames."""
+    import dataclasses
+
+    import torch
+
+    from ash_renderer_tpu_torch import _build
+    from ash_renderer_tpu_torch.benchmarks import (GOLDEN_SCENES, GOLDEN_SHA,
+                                                   config5_flythrough)
+    from ash_renderer_tpu_torch.camera import Camera, orbit_path
+    from ash_renderer_tpu_torch.parallel import (make_render_mesh,
+                                                 render_frame_sharded,
+                                                 slab_rows)
+    from ash_renderer_tpu_torch.renderer import Renderer
+
+    (scene5, st5, cam5, g5), (scene8, st8, cam8, g8) = head5, head8
+    n_cards = torch.cuda.device_count()
+
+    def emulated(n):
+        return make_render_mesh([dev] * n)
+
+    # no fallback: more slabs than cards through n_devices raises
+    try:
+        Renderer(scene5, dataclasses.replace(st5, n_devices=n_cards + 1),
+                 device=dev)
+    except ValueError as e:
+        say(f"n_devices={n_cards + 1} with {n_cards} card(s): ValueError ({e})")
+    else:
+        raise RuntimeError("n_devices beyond the cards present did not raise")
+
+    torch.cuda.reset_peak_memory_stats()
+    nocache = dataclasses.replace(st8, front_coherence=False)
+    on = dataclasses.replace(st8, fused_surface_shade="on")
+    r8_8 = Renderer(scene8, st8, mesh=emulated(8))
+    r8on_8 = Renderer(scene8, on, mesh=emulated(8))
+    r8_1 = Renderer(scene8, nocache, device=dev)
+    r5_n = {n: Renderer(scene5, st5, mesh=emulated(n)) for n in (2, 3)}
+    ref_scene, ref_st = GOLDEN_SCENES["reference"]()
+    ref_n = {n: Renderer(ref_scene, ref_st, mesh=emulated(n)) for n in (2, 3)}
+    r5c = Renderer(scene5, st5, device=dev)  # meshlet-packed state
+    cls5 = classic_statics(r5c)
+    scene_c5, st_c5, cams_c5 = config5_flythrough()
+    rc5_1 = Renderer(scene_c5, st_c5, device=dev)
+    rc5_2 = Renderer(scene_c5, st_c5, mesh=emulated(2))
+    flyby = flyby_camera(FLYBY_FRAME, N_FRAMES)
+    moved = orbit_path(N_FRAMES, radius=2.0, center=[0.0, 0.0, 2.0])[5]
+    rows8 = slab_rows(r8_8.statics, 8)
+    require(rows8 == 17 and rows8 * 8 * 8 > st8.height,
+            f"1080p in 8 slabs: {rows8} tile rows a slab, not 17 (padded)")
+    # single-device frames to compare with, outside the counted run
+    f_fly1 = r8_1.read_frame(r8_1.render_frame(flyby)[0])
+    f_c5 = rc5_1.read_frame(rc5_1.render_frame(cams_c5[0])[0])
+    torch.cuda.synchronize()
+
+    with PlainVersionsRaise():
+        _build.launches.clear()
+        for label, r in (("auto (K3)", r8_8), ("on (K3F)", r8on_8)):
+            f, aux = r.render_frame(cam8)
+            f = r.read_frame(f)
+            require(sha(f) == g8["sha256"],
+                    f"subdiv 8 in 8 slabs, {label}: frame != golden")
+            require(int(aux["clip_overflow"]) == 0, f"{label}: clip overflow")
+            say(f"subdiv-8 frame 1920x1080 in 8 slabs of {rows8} tile rows "
+                f"on {dev}, {label}: golden sha256 EXACT")
+        for n, r in r5_n.items():
+            f = r.read_frame(r.render_frame(cam5)[0])
+            require(sha(f) == g5["sha256"], f"subdiv 5 in {n} slabs != golden")
+            say(f"subdiv-5 frame in {n} slabs "
+                f"({slab_rows(r.statics, n)} tile rows each): golden sha256 EXACT")
+        f_fly, aux = r8_8.render_frame(flyby)
+        f_fly = r8_8.read_frame(f_fly)
+        cnt = {k: int(aux[k]) for k in ("n_wide", "wide_pairs_n", "n_clipped",
+                                        "wide_leftover", "clip_overflow")}
+        require((f_fly == f_fly1).all(),
+                "fly-by frame 12 in 8 slabs != the single-device frame")
+        require(cnt["n_wide"] > 0 and cnt["wide_pairs_n"] > 0
+                and cnt["n_clipped"] > 0,
+                f"fly-by in 8 slabs: the worst slab's counters are dead {cnt}")
+        say(f"fly-by frame {FLYBY_FRAME} in 8 slabs: byte-equal to the single "
+            f"device's; worst slab {cnt}")
+        fs = r8_8.read_frame(r8_8.render_frame(cam8)[0])
+        fm = r8_8.read_frame(r8_8.render_frame(moved)[0])
+        fs2 = r8_8.read_frame(r8_8.render_frame(cam8)[0])
+        require(not (fm == fs).all(), "8 slabs: the moved frame equals the static one")
+        require((fs2 == fs).all(), "8 slabs: static -> moved -> static differs")
+        say("8 slabs: static -> moved -> static: final frame byte-equal to the first")
+        for n, r in ref_n.items():
+            require(r.settings.pipeline == "classic", "reference: not classic")
+            f = r.read_frame(r.render_frame(Camera())[0])
+            require(sha(f) == GOLDEN_SHA["reference"],
+                    f"reference in {n} slabs: frame != golden")
+            say(f"reference {f.shape[1]}x{f.shape[0]} (classic, K4) in {n} "
+                "slabs: golden sha256 EXACT")
+        mm_t, mvp_t, _ = front_inputs(r5c, cam5)
+        lt = torch.from_numpy(r5c.packed.local_tri).to(dev)
+        for n in (2, 3):
+            f, st = render_frame_sharded(
+                cls5, emulated(n), {dev: r5c.state}, mm_t, mvp_t,
+                torch.from_numpy(cam5.position.astype("float32")).to(dev),
+                local_tri=lt)
+            f = f.cpu().numpy()
+            require(int(st["pairs_overflow"]) == 0, "classic slabs: overflow")
+            require(sha(f) == g5["sha256"],
+                    f"classic subdiv 5 (meshlets) in {n} slabs != golden")
+            say(f"classic subdiv-5 frame (meshlets, K5 + K4) in {n} slabs: "
+                "golden sha256 EXACT")
+        f = rc5_2.read_frame(rc5_2.render_frame(cams_c5[0])[0])
+        require((f == f_c5).all(), "config5 frame 0 in 2 slabs != single device")
+        say(f"config5 frame 0 ({st_c5.width}x{st_c5.height}, ss "
+            f"{st_c5.supersample}) in 2 slabs: byte-equal to the single device's")
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+    say(json.dumps(counts, sort_keys=True))
+    for k in SLAB_KERNELS:
+        require(counts.get(k, 0) > 0, f"{k} was not launched in phase 19")
+
+    if n_cards >= 2:
+        cards = make_render_mesh(torch.device("cuda", i)
+                                 for i in range(min(n_cards, 8)))
+        rc = Renderer(scene8, st8, mesh=cards)
+        require(sha(rc.read_frame(rc.render_frame(cam8)[0])) == g8["sha256"],
+                f"subdiv 8 on {len(cards)} cards != golden")
+        require((rc.read_frame(rc.render_frame(flyby)[0]) == f_fly1).all(),
+                f"fly-by on {len(cards)} cards != the single device's")
+        rr = Renderer(ref_scene, ref_st, mesh=cards)
+        require(sha(rr.read_frame(rr.render_frame(Camera())[0]))
+                == GOLDEN_SHA["reference"], "reference on cards != golden")
+        say(f"the same frames on {len(cards)} distinct cards: EXACT")
+        del rc, rr
+    else:
+        say(f"one card: the slabs were emulated on {dev} (a mesh that repeats "
+            "it); no frame ran on distinct cards")
+
+    # K3 and K3F on a middle slab's tables against their plain versions
+    compare_slab_raster(r8_8, cam8, 4 * rows8, rows8, "subdiv 8 auto", errs)
+    compare_slab_raster(r8on_8, cam8, 4 * rows8, rows8, "subdiv 8 on", errs)
+    compare_slab_raster(r8_8, flyby, 3 * rows8, rows8, "subdiv 8 fly-by", errs)
+    del r8_8, r8on_8, r5_n, ref_n, r5c, rc5_1, rc5_2
+
+    legs = [("1 device", r8_1)] + [
+        (f"{n} slabs", Renderer(scene8, nocache, mesh=emulated(n)))
+        for n in (2, 8)]
+    turns(card, "config4 subdiv 8 static uncached, slabs on one card", legs,
+          [cam8] * N_FRAMES)
+    stage_ms(legs[2][1], cam8)  # warm-up
+    per_slab = stage_ms(legs[2][1], cam8)
+    summed: dict = {}
+    for k, v in per_slab.items():
+        summed[k.split("@")[0]] = summed.get(k.split("@")[0], 0.0) + v
+    say(f"[{card}] stage ms (8 slabs, static, summed over the slabs): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in summed.items()))
+    say(f"[{card}] ms per slab (static): " + ", ".join(
+        f"{i} {sum(v for k, v in per_slab.items() if k.endswith(f'@{i}')):.3f}"
+        for i in range(8)))
+    say(f"[{card}] peak device memory (phase 19): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del legs, r8_1
+    return counts
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1989,6 +2254,10 @@ def main() -> int:
 
     with Phase("18 diffrender on the card"):
         diffrender_checks(dev, card)
+
+    with Phase("19 row slabs on the card"):
+        counts_slab = slab_checks(dev, card, errs, (scene5, st5, cams5[0], g5),
+                                  (scene8, st8, cams8[0], g8))
 
     meta = {
         "K1": ("K1_setup", "ash_renderer_tpu_torch/csrc/setup.cu",

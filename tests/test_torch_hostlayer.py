@@ -266,8 +266,8 @@ def _port_files():
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     """AST scan of every module of the port (the oracle, the debug layer,
-    the app, the loaders and diffrender included), chip_smoke.py and the
-    frame profiler: no import of jax,
+    the app, the loaders, diffrender and the row-slab ``parallel`` package
+    included), chip_smoke.py and the frame profiler: no import of jax,
     jaxlib or ash_renderer_tpu (or a submodule)."""
     files = _port_files()
     assert len(files) > 20
@@ -279,7 +279,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         os.path.join("oracle", "raster_cpu.py"),
         os.path.join("oracle", "scalar_ref.py"),
         os.path.join("oracle", "shade_np.py"),
-        os.path.join("oracle", "specmath_np.py"))} <= rel
+        os.path.join("oracle", "specmath_np.py"),
+        os.path.join("parallel", "__init__.py"),
+        os.path.join("parallel", "sharding.py"))} <= rel
     bad = []
     for path in files:
         for name in _imports(path):

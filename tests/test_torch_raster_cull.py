@@ -3,7 +3,9 @@ covers for a streamed (tile, slot) lies inside the slot's pixel box
 (``fused_kernel.slot_pixel_boxes``, the boxes ``csrc/raster.cu`` culls to),
 and a fine row's box never leaves its 16-px window.  Checked on the random
 and graze parity cases (clip tail and wide pairs live), on the 150x64
-fine-padding scene of ``test_torch_raster.py``, and as a hypothesis
+fine-padding scene of ``test_torch_raster.py``, on slabs of a
+multi-device frame (a nonzero first tile row: the boxes and the coverage
+in screen rows), and as a hypothesis
 property over single records anywhere in the guard extent, zero-area,
 sliver and axis-aligned (top-left) edges included."""
 
@@ -33,10 +35,10 @@ PIX = torch.arange(fk.N_PIX)
 COL, ROW = (PIX % fk.TILE_W).to(I32), (PIX // fk.TILE_W).to(I32)
 
 
-def plain_coverage(tile, rng, pos, tbl_sorted, tbl_ext, cfg):
+def plain_coverage(tile, rng, pos, tbl_sorted, tbl_ext, cfg, tile_row0=0):
     """(N, 1024) bool: each slot's coverage of its tile's pixels, in the
     arithmetic of ``rasterize_distribute_plain`` (fine rows only inside
-    their window)."""
+    their window); tile t lies at tile row t // grid_w + tile_row0."""
     ss, half, min_c = cfg.subpixel_scale, cfg.subpixel_scale // 2, cfg.min_coord
     ext = rng == fk.EXT_RANGE
     rec = torch.empty((pos.shape[0], 3), dtype=I32)
@@ -47,7 +49,7 @@ def plain_coverage(tile, rng, pos, tbl_sorted, tbl_ext, cfg):
     x0, x1, x2 = x[:, 0:1], x[:, 1:2], x[:, 2:3]
     y0, y1, y2 = y[:, 0:1], y[:, 1:2], y[:, 2:3]
     tx = (tile % cfg.grid_w).to(I32)[:, None]
-    ty = (tile // cfg.grid_w).to(I32)[:, None]
+    ty = (tile // cfg.grid_w + tile_row0).to(I32)[:, None]
     sx, sy = sm.pixel_sample_coords(tx * fk.TILE_W + COL, ty * fk.TILE_H + ROW, ss)
     cov = torch.ones((pos.shape[0], fk.N_PIX), dtype=torch.bool)
     for xa, ya, xb, yb in ((x1, y1, x2, y2), (x2, y2, x0, y0), (x0, y0, x1, y1)):
@@ -59,15 +61,20 @@ def plain_coverage(tile, rng, pos, tbl_sorted, tbl_ext, cfg):
     return cov & ((rng != fk.FINE_RANGE)[:, None] | (COL // FINE_W == win))
 
 
-def check_boxes(rmeta, tbl_sorted, tbl_ext, cfg):
-    """Asserts the cull's two properties on every streamed slot; returns
-    (slots, covered slot-pixels, box slot-pixels, fine slots)."""
-    tile, rng, box = fk.slot_pixel_boxes(rmeta, tbl_sorted, tbl_ext, cfg)
-    _, _, pos = fk._range_pairs(rmeta, cfg.n_tiles)
+def check_boxes(rmeta, tbl_sorted, tbl_ext, cfg, tile_row0=0, box_row0=None):
+    """Asserts the cull's two properties on every streamed slot (of the
+    window from ``tile_row0`` the range meta was built for; the boxes are
+    taken at ``box_row0``, by default the same); returns (slots, covered
+    slot-pixels, box slot-pixels, fine slots)."""
+    tile, rng, box = fk.slot_pixel_boxes(
+        rmeta, tbl_sorted, tbl_ext, cfg,
+        tile_row0 if box_row0 is None else box_row0)
+    _, _, pos = fk._range_pairs(rmeta, rmeta.shape[0] // (fk.N_RANGES * 2))
     n_cov = 0
     for c0 in range(0, pos.shape[0], fk.PLAIN_CHUNK):
         sl = slice(c0, c0 + fk.PLAIN_CHUNK)
-        cov = plain_coverage(tile[sl], rng[sl], pos[sl], tbl_sorted, tbl_ext, cfg)
+        cov = plain_coverage(tile[sl], rng[sl], pos[sl], tbl_sorted, tbl_ext,
+                             cfg, tile_row0)
         b = box[sl]
         inside = ((COL >= b[:, 0:1]) & (COL <= b[:, 1:2])
                   & (ROW >= b[:, 2:3]) & (ROW <= b[:, 3:4]))
@@ -106,6 +113,32 @@ def test_box_holds_every_covered_pixel(name, ranges, box_share):
     assert n_cov > 500
     # the cull's point: the boxes are a part of the brute-force work
     assert n_cov <= n_box < n * fk.N_PIX * box_share
+
+
+@pytest.mark.parametrize("name, window", [
+    ("graze", (6, 6)),  # clip tail and wide pairs
+    ("graze", (12, 6)),  # a last slab past the screen
+    ("config3", (9, 1)),  # one tile row; fine runs
+])
+def test_box_holds_every_covered_pixel_in_a_slab(name, window):
+    """A slab's boxes and its coverage in screen rows: a box taken in the
+    slab's own rows against coverage in the frame's would leave pixels
+    out (and the kernel would drop them)."""
+    case = tp.make_case(name)
+    tile_row0, tile_rows = window
+    rmeta, tbl_sorted, tbl_ext, _, stats = pipeline.render_front(
+        tp.port_statics(case), tp.port_state(case), tp.t(case.mm),
+        tp.t(case.mvp), tile_row0=tile_row0, tile_rows=tile_rows)
+    n, n_cov, n_box, n_fine = check_boxes(rmeta, tbl_sorted, tbl_ext,
+                                          case.cfg, tile_row0)
+    assert n_cov > 100 and n_cov <= n_box < n * fk.N_PIX
+    if name == "config3":
+        assert n_fine > 0
+    # boxes taken in the slab's own rows miss covered pixels
+    if name == "graze":
+        with pytest.raises(AssertionError, match="outside their box"):
+            check_boxes(rmeta, tbl_sorted, tbl_ext, case.cfg, tile_row0,
+                        box_row0=0)
 
 
 def test_fine_padding_scene():
