@@ -27,7 +27,29 @@ plain torch version.
 ``RendererSettings(n_devices=N)`` renders each frame in row slabs, one per
 mesh device (``parallel``: ``make_render_mesh``, ``render_frame_sharded``,
 ``render_frame_sharded_fused``); a mesh may repeat a device.
+``RendererSettings(preferred_device_index=i)`` names ``cuda:i`` when no
+device is given (``renderer.resolve_device``).
+
+The top-level names are the reference's: the host types below are imported
+eagerly (they need neither torch nor a card), ``Renderer``, ``App`` and the
+``parallel`` names on first use.  ``utils.debugging`` and
+``utils.profiling`` are the top-level ``debugging`` and ``profiling``
+modules under the reference's paths.
 """
+
+from .camera import Camera, CameraController, orbit_path  # noqa: F401
+from .config import RendererSettings, RasterConfig, derive_raster_config  # noqa: F401
+from .scene import (  # noqa: F401
+    DirectionalLight,
+    Material,
+    Mesh,
+    PackedScene,
+    Scene,
+    SceneObject,
+    reference_two_triangle_scene,
+)
+
+__version__ = "0.1.0"
 
 _PARALLEL = ("make_render_mesh", "render_frame_sharded",
              "render_frame_sharded_fused")

@@ -25,8 +25,9 @@ __all__ = ["RendererSettings", "RasterConfig", "derive_raster_config"]
 class RendererSettings:
     """User-facing settings (analogue of UserSettings, renderer.rs:34-44)."""
 
-    # Device preference of the JAX package; the port takes an explicit
-    # torch device instead (Renderer(..., device=...)).
+    # The CUDA ordinal of the card to render on when Renderer gets no
+    # device, or the one an explicit device must agree with
+    # (renderer.resolve_device).
     preferred_device_index: Optional[int] = None
 
     width: int = 800

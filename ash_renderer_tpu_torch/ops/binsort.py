@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from .tritables import unpack_coord_planes
+
 GRP_DR = 0
 GRP_R = 1
 GRP_D = 2
@@ -130,6 +132,15 @@ def keys_from_aabb(valid, pxmin, pxmax, pymin, pymax, cfg, tile_row0: int = 0,
     return key.to(torch.int32)
 
 
+def bin_sort(su, cfg, tile_row0: int = 0, tile_rows=None):
+    """(order, bounds) of a ``TriangleSetup``'s rows for the tile-row window
+    (the whole grid by default): ``stream_keys``, then
+    ``sort_and_bounds``."""
+    key = stream_keys(su.valid, su.x0, su.y0, su.x1, su.y1, su.x2, su.y2,
+                      cfg, tile_row0, tile_rows)
+    return sort_and_bounds(key, cfg, tile_rows)
+
+
 def sort_and_bounds(key, cfg, tile_rows=None):
     """Stable sort of the streaming keys of a window of ``tile_rows`` tile
     rows (the whole grid by default); returns (order, bounds) where
@@ -161,7 +172,6 @@ def expand_wide_pairs(comb, order, bounds, cfg, wide_rows: int,
     tile_rows, py_lo, py_hi = window_rows(cfg, tile_row0, tile_rows)
     gw = cfg.grid_w
     n_tiles = tile_rows * gw
-    off = -cfg.min_coord
     s_rows = order.shape[0]
     ws = int(bounds[n_tiles * KEYS_PER_TILE])
     we = int(bounds[n_tiles * KEYS_PER_TILE + 1])
@@ -178,11 +188,8 @@ def expand_wide_pairs(comb, order, bounds, cfg, wide_rows: int,
     idx = torch.arange(wide_rows, dtype=i32, device=dev)
     live_row = idx < min(n_wide, wide_rows)
     crows = comb[wrows.long(), 0:3]
-    xs = [(crows[:, c] & 0xFFFF) - off for c in range(3)]
-    ys = [((crows[:, c] >> 16) & 0xFFFF) - off for c in range(3)]
-    pxmin, pxmax, pymin, pymax = pixel_aabb_of(
-        xs[0], ys[0], xs[1], ys[1], xs[2], ys[2], cfg
-    )
+    xy = [c for k in range(3) for c in unpack_coord_planes(crows[:, k], cfg)]
+    pxmin, pxmax, pymin, pymax = pixel_aabb_of(*xy, cfg)
     pymin = torch.clamp(pymin, min=py_lo)
     pymax = torch.clamp(pymax, max=py_hi)
     live_r = live_row & (pxmax >= pxmin) & (pymax >= pymin)
@@ -215,3 +222,24 @@ def expand_wide_pairs(comb, order, bounds, cfg, wide_rows: int,
     qt = torch.arange(n_tiles + 1, dtype=i32, device=dev)
     pair_starts = torch.searchsorted(tile_s, qt, right=False).to(i32)
     return pair_rows, pair_starts, ws + n_fit
+
+
+def stream_ranges_host(bounds, tile: int, gw: int, n_tiles: int):
+    """The 6 position ranges of the sorted order that tile ``tile`` streams,
+    in the reference's order: own coarse run, ABOVE prefix {dr, r, d}, LEFT
+    prefix {dr, r}, DIAGONAL prefix {dr}, the global wide run, own fine run
+    (``(0, 0)`` for a neighbour off the grid).  A host mirror of
+    ``fused_kernel.build_range_meta`` without the wide-pair run, on numpy
+    or tensor bounds."""
+    def b(k):
+        return int(bounds[k])
+
+    tx, ty = tile % gw, tile // gw
+    fb = n_tiles * N_GRP
+    ranges = [(b(tile * N_GRP), b((tile + 1) * N_GRP))]
+    for ok, nb, n_grp in ((ty > 0, tile - gw, 3), (tx > 0, tile - 1, 2),
+                          (tx > 0 and ty > 0, tile - gw - 1, 1)):
+        ranges.append((b(nb * N_GRP), b(nb * N_GRP + n_grp)) if ok else (0, 0))
+    ranges.append((b(n_tiles * KEYS_PER_TILE), b(n_tiles * KEYS_PER_TILE + 1)))
+    ranges.append((b(fb + tile * N_FINE), b(fb + (tile + 1) * N_FINE)))
+    return ranges

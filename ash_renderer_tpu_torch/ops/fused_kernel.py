@@ -60,7 +60,7 @@ from .. import specmath as sm
 from .binsort import (FINE_W, KEYS_PER_TILE, N_FINE, N_GRP, crop_window,
                       window_rows)
 from .shade import interp_fields_stacked, shade_consts_layout, surface_prelight
-from .tritables import ID_COL, TBL_COLS
+from .tritables import ID_COL, TBL_COLS, unpack_coord_planes
 
 N_RANGES = 7  # own, above, left, diag, wide, wide-pairs(ext), own-fine
 EXT_RANGE = 5
@@ -364,17 +364,10 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
 def phase_e(o, px, py, cfg):
     """Phase E: (..., N, 48) winner fields -> (attr (..., 12, N) f32, the 4
     raw uv derivatives (..., N) f32, material (..., N) i32)."""
-    off = -cfg.min_coord
     o = o.movedim(-1, -2)  # (..., 48, N)
-
-    def oxy(c):
-        p = o[..., c, :]
-        return (p & 0xFFFF) - off, ((p >> 16) & 0xFFFF) - off
-
     g = {}
-    g["x0"], g["y0"] = oxy(0)
-    g["x1"], g["y1"] = oxy(1)
-    g["x2"], g["y2"] = oxy(2)
+    for c in range(3):
+        g[f"x{c}"], g[f"y{c}"] = unpack_coord_planes(o[..., c, :], cfg)
     g["inv_area2"] = sm.bitcast_f32(o[..., 5, :])
     g["iw0"] = sm.bitcast_f32(o[..., 6, :])
     g["iw1"] = sm.bitcast_f32(o[..., 7, :])

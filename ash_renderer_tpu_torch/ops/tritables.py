@@ -94,6 +94,14 @@ def comb_rows(f: dict, a_v0, a_v1, a_v2, cfg, id_base: int = 0):
     return out
 
 
+def unpack_coord_planes(packed, cfg):
+    """(x, y) snapped coordinates from packed coordinate words (comb columns
+    0-2, or planes of them): the inverse of ``comb_rows``' packing, for
+    tensors and numpy arrays alike."""
+    off = -cfg.min_coord
+    return (packed & 0xFFFF) - off, ((packed >> 16) & 0xFFFF) - off
+
+
 def sorted_table(comb, order, live_end: int):
     """The live prefix of the comb table in streaming order: rows
     ``order[:live_end]``.  The raster kernel only streams positions before

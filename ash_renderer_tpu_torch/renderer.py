@@ -1,8 +1,9 @@
 """Renderer facade with the reference's three-tier lifecycle, on one
 explicit torch device.
 
-* Settings-independent tier (``__init__``): the device, given by the caller
-  and never chosen here.
+* Settings-independent tier (``__init__``): the device, named by the
+  caller (``device``, ``mesh`` or ``settings.preferred_device_index``, see
+  ``resolve_device``) and never chosen here.
 * Settings-dependent tier (``_build_settings_dependent``): scene tensors,
   materials, atlas and light on the device; rebuilt by ``update_settings``.
 * Resize-dependent tier (``_build_resize_dependent``): the RasterConfig,
@@ -45,6 +46,7 @@ from .oracle.raster_cpu import compose_mvp
 from .pipeline import (FrameStatics, FrontCache, _no_stage, render_frame,
                        render_frame_fused_staged)
 from .present import FrameRing
+from .rtypes import LightPack, MaterialsPack  # noqa: F401  (the reference's re-exports)
 
 F32 = np.float32
 AUTO_FUSED_TRIS = 4096  # "auto" takes the fused pipeline from this many
@@ -92,6 +94,39 @@ def resolve_mesh(settings: RendererSettings, device, mesh=None):
     raise ValueError(f"n_devices on an unsupported device {device}")
 
 
+def resolve_device(settings: RendererSettings, device=None, mesh=None):
+    """The torch device of a renderer, as its caller names it; the port
+    never picks one and never falls back to another.
+
+    * a ``mesh`` wins: its first device (``device``, if also given, must be
+      that device);
+    * else an explicit ``device``.  If ``settings.preferred_device_index``
+      is also set, the device must be ``cuda:<index>``; a bare ``"cuda"``
+      takes the index as its ordinal;
+    * else ``settings.preferred_device_index`` names ``cuda:<index>``;
+    * else ``TypeError``."""
+    if mesh is not None:
+        mesh = make_render_mesh(mesh)
+        if device is not None and torch.device(device) != mesh[0]:
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"device {mesh[0]}")
+        return mesh[0]
+    index = settings.preferred_device_index
+    if device is not None:
+        dev = torch.device(device)
+        if index is None:
+            return dev
+        want = torch.device("cuda", index)
+        if dev.type == "cuda" and dev.index in (None, index):
+            return want
+        raise ValueError(f"device {dev} disagrees with "
+                         f"preferred_device_index={index} ({want})")
+    if index is not None:
+        return torch.device("cuda", index)
+    raise TypeError("Renderer needs a device, a mesh or "
+                    "settings.preferred_device_index")
+
+
 class Renderer:
     def __init__(self, scene: Scene, settings: Optional[RendererSettings] = None,
                  *, device=None, mesh=None):
@@ -99,20 +134,14 @@ class Renderer:
         (for example ``torch.device("cuda", 0)``).  mesh: the devices of a
         frame rendered in row slabs (``parallel.make_render_mesh``); it
         wins over ``settings.n_devices``, and its first device is the
-        renderer's.  One of the two is required: the renderer never picks
+        renderer's.  Without either, ``settings.preferred_device_index``
+        names the CUDA card (``resolve_device``): the renderer never picks
         a device itself."""
-        if mesh is not None:
-            mesh = make_render_mesh(mesh)
-            if device is not None and torch.device(device) != mesh[0]:
-                raise ValueError(f"device {device} is not the mesh's first "
-                                 f"device {mesh[0]}")
-            device = mesh[0]
-        if device is None:
-            raise TypeError("Renderer needs a device or a mesh")
-        self.device = torch.device(device)
-        self._mesh_arg = mesh
+        settings = settings or RendererSettings()
+        self._mesh_arg = None if mesh is None else make_render_mesh(mesh)
+        self.device = resolve_device(settings, device, self._mesh_arg)
         self.stats = FrameStats()
-        self._build_settings_dependent(scene, settings or RendererSettings())
+        self._build_settings_dependent(scene, settings)
 
     # ----- settings-dependent world -------------------------------------
     def _build_settings_dependent(self, scene: Scene, settings: RendererSettings):
@@ -159,8 +188,14 @@ class Renderer:
 
     # ----- public API ----------------------------------------------------
     def update_settings(self, settings: RendererSettings, scene: Scene = None):
-        """Rebuild the whole settings-dependent world."""
+        """Rebuild the whole settings-dependent world, on the card that a
+        changed ``preferred_device_index`` names (the reference re-selects
+        its device there); the scene state is uploaded to it anew."""
         self.ring.drain()
+        index = settings.preferred_device_index
+        if (self._mesh_arg is None and index is not None
+                and index != self.settings.preferred_device_index):
+            self.device = resolve_device(settings)
         self._build_settings_dependent(scene or self.scene, settings)
 
     def resize(self, width: int, height: int):

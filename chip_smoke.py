@@ -140,7 +140,22 @@ lines and seconds; any failure raises and the exit code is non-zero):
    the slab's row origin, bit for bit, timed; CUDA-event frame ms at
    subdiv 8, static, front cache off, on 1 device and in 2 and 8 slabs in
    turns; the 8-slab frame's stage ms summed over the slabs and its ms per
-   slab; peak device memory.
+   slab; peak device memory;
+20. the examples and the last host helpers, every kernel's plain version
+   made to raise and the launch counts zeroed before each run and read
+   after it: ``examples/torch_render_scene.py`` (run in this process,
+   without ``--device``) on config4 at subdiv 8 (1920x1080) writes a PNG
+   that decodes to the headline golden (K1, K2, K3 launched) and on the
+   reference scene at 320x240 the PNG of ``tests/golden/
+   reference_320x240.png`` (K4); ``torch_inverse_rendering.py`` on the
+   card writes the target PNG of a ``--device cpu`` run byte for byte, its
+   loss falls and its last loss is the CPU's within ``INV_LOSS_RTOL``;
+   ``torch_interactive.py --frames 8 --size 320x240`` with stdin not a tty
+   prints its frame count and fps (K1, K2, K3F); ``binsort.bin_sort`` on
+   the subdiv-5 headline's setup gives the CPU's bounds and run rows (K2),
+   for the whole frame and a slab window; ``Renderer`` with
+   ``preferred_device_index=0`` and no device renders on cuda:0 the frame
+   of ``device="cuda:0"``.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -1237,9 +1252,9 @@ def debug_checks(dev, card, oracle_cases, auxes, fb, cam) -> None:
 
 
 def decode_png(path: str):
-    """An 8-bit RGBA PNG whose rows all use filter 0 (``present.encode_png``
-    writes only those) as (H, W, 4) uint8, with the standard library's
-    inflate: the frame a user of ``app.main`` gets, read back without PIL."""
+    """An 8-bit RGBA PNG as (H, W, 4) uint8, with the standard library's
+    inflate and the five row filters undone: the frame a user of
+    ``app.main`` gets, or a stored golden, read back without PIL."""
     import struct
     import zlib
 
@@ -1253,14 +1268,35 @@ def decode_png(path: str):
         n, tag = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
         if tag == b"IHDR":
-            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
-            require((depth, ctype) == (8, 6), f"{path}: not 8-bit RGBA")
+            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", body)
+            require((depth, ctype, interlace) == (8, 6, 0),
+                    f"{path}: not 8-bit RGBA without interlace")
         elif tag == b"IDAT":
             idat += body
         pos += 12 + n
     rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 4 * w)
-    require(not rows[:, 0].any(), f"{path}: a row filter other than 0")
-    return rows[:, 1:].reshape(h, w, 4)
+    out = np.zeros((h + 1, 4 * (w + 1)), np.int32)  # a zero row and pixel
+    for y in range(h):
+        raw, up = rows[y, 1:].astype(np.int32), out[y, 4:]
+        cur = out[y + 1]
+        kind = int(rows[y, 0])
+        if kind in (0, 2):
+            cur[4:] = (raw + (up if kind == 2 else 0)) & 255
+        elif kind == 1:  # Sub: a running sum per channel
+            cur[4:] = np.cumsum(raw.reshape(w, 4), axis=0).reshape(-1) & 255
+        elif kind in (3, 4):  # Average, Paeth: pixel after pixel
+            for x in range(4, 4 * w + 4, 4):
+                a, b, c = cur[x - 4:x], out[y, x:x + 4], out[y, x - 4:x]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = np.where((pa <= pb) & (pa <= pc), a,
+                                    np.where(pb <= pc, b, c))
+                cur[x:x + 4] = (raw[x - 4:x] + pred) & 255
+        else:
+            require(False, f"{path}: row filter {kind}")
+    return out[1:, 4:].astype(np.uint8).reshape(h, w, 4)
 
 
 # scripted input for the App runs of phase 17: every key, both mouse axes
@@ -1920,6 +1956,225 @@ def slab_checks(dev, card: str, errs: dict, head5, head8) -> dict:
     return counts
 
 
+# the loss of the inverse-rendering example on the card against the CPU's:
+# the forward images are bit-equal, but Adam's mean reductions sum in
+# another order on each device, so the fits drift apart by float rounding
+INV_LOSS_RTOL = 1e-2
+
+
+def run_counted(fn, stdin=None):
+    """``fn()`` with every kernel's plain version made to raise, stdout
+    captured and ``stdin`` (when given) in place of sys.stdin; the launch
+    counts are zeroed just before and read just after.  Returns (result,
+    launch counts, seconds, captured stdout)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from ash_renderer_tpu_torch import _build
+
+    buf = io.StringIO()
+    saved_stdin = sys.stdin
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    try:
+        if stdin is not None:
+            sys.stdin = stdin
+        with PlainVersionsRaise(), contextlib.redirect_stdout(buf):
+            res = fn()
+            torch.cuda.synchronize()
+    finally:
+        sys.stdin = saved_stdin
+    return res, dict(_build.launches), time.perf_counter() - t0, buf.getvalue()
+
+
+def run_example(name: str, argv: list, **kw):
+    """``examples/<name>`` run in this process as ``__main__`` with
+    ``argv`` (``run_counted``)."""
+    import runpy
+
+    path = os.path.join(ROOT, "examples", name)
+    saved = sys.argv
+    sys.argv = [path, *argv]
+    try:
+        return run_counted(lambda: runpy.run_path(path, run_name="__main__"),
+                           **kw)
+    finally:
+        sys.argv = saved
+
+
+def examples_checks(dev, card: str, head5, ref_golden: str) -> None:
+    """Phase 20: the port's examples and last host helpers on the card,
+    every kernel's plain version made to raise and the launch counts zeroed
+    before each run and read after it.  ``examples/torch_render_scene.py``
+    without ``--device`` on config4 at subdiv 8 (1080p) writes a PNG that
+    decodes to the headline golden (K1, K2, K3) and on the reference scene
+    at 320x240 one equal to ``tests/golden/reference_320x240.png`` (K4);
+    ``torch_inverse_rendering.py`` on the card writes the CPU run's target
+    PNG byte for byte, its loss falls and its last loss is the CPU's within
+    ``INV_LOSS_RTOL``; ``torch_interactive.py`` runs 8 frames unattended
+    (stdin not a tty); ``binsort.bin_sort`` on the subdiv-5 headline's
+    setup gives the CPU's bounds and run rows (K2), full frame and a slab
+    window; ``Renderer`` with ``preferred_device_index=0`` and no device
+    renders on cuda:0 the frame of ``device="cuda:0"``."""
+    import dataclasses
+    import re
+    import runpy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ash_renderer_tpu_torch.ops import binsort, geometry
+    from ash_renderer_tpu_torch.renderer import Renderer
+    from ash_renderer_tpu_torch.rtypes import TriangleSetup
+
+    out = os.path.join(ROOT, "build", "examples")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+
+    # the render example on the headline, at full width, on the card by default
+    g8 = golden("headline_config4.json")
+    d8 = os.path.join(out, "config4")
+    _, counts, dt, text = run_example(
+        "torch_render_scene.py",
+        ["config4_million_tri", "--frames", "1", "--out", d8])
+    say(text.strip())
+    say(json.dumps(counts, sort_keys=True))
+    for k in ("K1_setup", "K2_run_bounds", "K3_raster"):
+        require(counts.get(k, 0) > 0, f"{k} was not launched by "
+                "torch_render_scene.py config4_million_tri")
+    f8 = decode_png(os.path.join(d8, "frame_0000.png"))
+    require(sha(f8) == g8["sha256"], f"torch_render_scene.py config4: PNG "
+            f"sha256 {sha(f8)} != golden {g8['sha256']}")
+    say(f"[{card}] examples/torch_render_scene.py config4_million_tri "
+        f"({g8['n_tris']} tris, {f8.shape[1]}x{f8.shape[0]}): PNG decodes to "
+        f"the golden sha256 EXACT; {dt:.2f} s wall (scene, meshlets, upload, "
+        "frame, PNG)")
+
+    dref = os.path.join(out, "reference")
+    _, counts, dt, text = run_example(
+        "torch_render_scene.py", ["reference", "--size", "320x240", "--out",
+                                  dref])
+    require(counts.get("K4_raster_classic", 0) > 0,
+            "K4 was not launched by torch_render_scene.py reference")
+    fr = decode_png(os.path.join(dref, "frame_0000.png"))
+    want = decode_png(os.path.join(ROOT, "tests", "golden",
+                                   "reference_320x240.png"))
+    require(fr.shape == want.shape and (fr == want).all() and
+            sha(fr) == ref_golden,
+            "torch_render_scene.py reference 320x240 != tests/golden PNG")
+    say(f"[{card}] examples/torch_render_scene.py reference 320x240 (classic, "
+        f"K4 {counts.get('K4_raster_classic', 0)}x): PNG == tests/golden/"
+        f"reference_320x240.png; {dt:.2f} s wall")
+
+    # the inverse-rendering example on the card and on the CPU
+    inv = runpy.run_path(os.path.join(ROOT, "examples",
+                                      "torch_inverse_rendering.py"),
+                         run_name="torch_inverse_rendering")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        d = os.path.join(out, f"inverse_{device}")
+        argv = ["--out", d] + (["--device", "cpu"] if device == "cpu" else [])
+        if device == "cpu":
+            t0 = time.perf_counter()
+            losses = inv["main"](argv)
+            counts, dt = {}, time.perf_counter() - t0
+        else:
+            losses, counts, dt, text = run_counted(lambda: inv["main"](argv))
+            say(text.strip())
+        with open(os.path.join(d, "inv_target.png"), "rb") as f:
+            runs[device] = (losses, dt, f.read(), counts)
+    (lg, tg, png_g, counts), (lc, tc, png_c, _) = runs["cuda"], runs["cpu"]
+    require(png_g == png_c, "torch_inverse_rendering.py: the card's target "
+            "PNG differs from the CPU's")
+    require(len(lg) == 120 and lg[-1] < lg[0],
+            f"torch_inverse_rendering.py on the card: loss {lg[0]:.4e} -> "
+            f"{lg[-1]:.4e}")
+    rel = abs(lg[-1] - lc[-1]) / lc[-1]
+    require(rel <= INV_LOSS_RTOL, f"torch_inverse_rendering.py: last loss "
+            f"card {lg[-1]:.6e} vs CPU {lc[-1]:.6e} (rel {rel:.3e} > "
+            f"{INV_LOSS_RTOL})")
+    say(f"[{card}] examples/torch_inverse_rendering.py (120 steps): target PNG "
+        f"card == CPU byte for byte; loss card {lg[0]:.6e} -> {lg[-1]:.6e}, "
+        f"CPU {lc[0]:.6e} -> {lc[-1]:.6e} (last losses within rel "
+        f"{rel:.3e} <= {INV_LOSS_RTOL}); wall card {tg:.2f} s, CPU {tc:.2f} s;"
+        f" launches {json.dumps(counts, sort_keys=True)} (shading is plain "
+        "torch)")
+
+    # the interactive example, unattended
+    with open(os.devnull) as null:
+        _, counts, dt, text = run_example(
+            "torch_interactive.py", ["--frames", "8", "--size", "320x240"],
+            stdin=null)
+    m = re.search(r"\n(\d+) frames, ([0-9.]+) FPS\n", text)
+    require(m is not None and m.group(1) == "8",
+            "torch_interactive.py: no '8 frames, ... FPS' line")
+    for k in ("K1_setup", "K2_run_bounds", "K3F_raster_shade"):
+        require(counts.get(k, 0) > 0, f"{k} was not launched by "
+                "torch_interactive.py")
+    say(f"[{card}] examples/torch_interactive.py config3 320x240, stdin not a "
+        f"tty: '{m.group(0).strip()}', {dt:.2f} s wall; launches "
+        f"{json.dumps(counts, sort_keys=True)}")
+
+    # bin_sort on the subdiv-5 headline's setup
+    scene5, st5, cam5, g5 = head5
+    r5 = Renderer(scene5, st5, device=dev)
+    cfg = r5.cfg
+    mm_t, mvp_t, _ = front_inputs(r5, cam5)
+    s = r5.state
+    lt = torch.from_numpy(r5.packed.local_tri).to(dev)
+
+    def setup():
+        clip, attrs = geometry.transform_vertices(
+            s.positions, s.vert_obj, s.normals, s.colors, s.uvs, mm_t, mvp_t)
+        return geometry.geometry_device(clip, attrs, s.tri_v, s.tri_mat, cfg,
+                                        st5.clip_budget, local_tri=lt)[0]
+
+    su = run_counted(setup)[0]
+    su_cpu = TriangleSetup(**{f.name: getattr(su, f.name).cpu()
+                              for f in dataclasses.fields(TriangleSetup)})
+    rows = -(-cfg.grid_h // 8)
+    for row0, n_rows in ((0, None), (3 * rows, rows)):
+        (order, bounds), counts, dt, _ = run_counted(
+            lambda: binsort.bin_sort(su, cfg, row0, n_rows))
+        require(counts.get("K2_run_bounds", 0) > 0, "bin_sort: K2 not launched")
+        o_c, b_c = binsort.bin_sort(su_cpu, cfg, row0, n_rows)
+        order, bounds = order.cpu().numpy(), bounds.cpu().numpy()
+        o_c, b_c = o_c.numpy(), b_c.numpy()
+        require((bounds == b_c).all(), f"bin_sort window ({row0}, {n_rows}): "
+                "card bounds != CPU bounds")
+        run = np.searchsorted(bounds, np.arange(order.shape[0]), "right") - 1
+        require((np.sort(order + run.astype(np.int64) * (1 << 32))
+                 == np.sort(o_c + run.astype(np.int64) * (1 << 32))).all(),
+                f"bin_sort window ({row0}, {n_rows}): a run holds other rows")
+        live = int(bounds[-3])  # rows before the wide run
+        say(f"[{card}] bin_sort subdiv 5, tile rows {row0}..."
+            f"{row0 + (n_rows or cfg.grid_h) - 1}: {order.shape[0]} rows, "
+            f"{live} coarse + fine before the wide run, bounds ({bounds.shape[0]}) "
+            f"and run rows card == CPU; K2 {counts.get('K2_run_bounds', 0)}x, "
+            f"{dt * 1e3:.3f} ms wall")
+
+    # preferred_device_index with no device
+    f_dev = r5.read_frame(r5.render_frame(cam5)[0])
+    ri = run_counted(lambda: Renderer(
+        scene5, dataclasses.replace(st5, preferred_device_index=0)))[0]
+    require(ri.device == torch.device("cuda", 0),
+            f"preferred_device_index=0: renderer on {ri.device}")
+    fi, counts, _, _ = run_counted(lambda: ri.read_frame(
+        ri.render_frame(cam5)[0]))
+    for k in ("K1_setup", "K2_run_bounds", "K3_raster"):
+        require(counts.get(k, 0) > 0, f"{k} was not launched by the "
+                "preferred_device_index renderer")
+    require((fi == f_dev).all() and sha(fi) == g5["sha256"],
+            "preferred_device_index=0: frame != the device='cuda:0' frame")
+    say("Renderer(RendererSettings(preferred_device_index=0)) without a "
+        f"device: on {ri.device}, subdiv-5 frame == the device='cuda:0' frame "
+        "== golden sha256 EXACT")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2258,6 +2513,10 @@ def main() -> int:
     with Phase("19 row slabs on the card"):
         counts_slab = slab_checks(dev, card, errs, (scene5, st5, cams5[0], g5),
                                   (scene8, st8, cams8[0], g8))
+
+    with Phase("20 examples and host helpers on the card"):
+        examples_checks(dev, card, (scene5, st5, cams5[0], g5),
+                        GOLDEN_SHA["reference"])
 
     meta = {
         "K1": ("K1_setup", "ash_renderer_tpu_torch/csrc/setup.cu",
