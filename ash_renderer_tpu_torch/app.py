@@ -67,10 +67,18 @@ class App:
         camera: Optional[Camera] = None,
         speed: float = 0.01,
         mouse_sens: float = 0.01,
+        warmup: bool = True,
         *,
         device="cuda",
     ):
         self.renderer = Renderer(scene, settings, device=require_device(device))
+        if warmup and self.renderer.device.type == "cuda":
+            # build and load the route's kernel libraries and run one frame
+            # before the loop starts.  On the card only, as the reference
+            # warms up on the TPU only: on the CPU there is nothing to build
+            # and the extra frame costs more than it hides.  warmup=False
+            # for callers that render exactly one frame anyway.
+            self.renderer.warmup()
         self.camera = camera or Camera()
         self.controller = CameraController(speed=speed, mouse_sens=mouse_sens)
         # the "window" extent: mutated by resize events (request_resize);

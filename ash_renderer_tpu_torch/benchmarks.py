@@ -49,6 +49,21 @@ def _reference_texture() -> np.ndarray:
     return checkerboard(512)
 
 
+def reference_texture_found() -> bool:
+    """Whether ``_reference_texture`` returns the reference's asset (by its
+    own test), not ``checkerboard(512)``: config5's stored golden
+    (``docs/golden/headline_config5.json``) was rendered with the asset."""
+    path = os.environ.get(REFERENCE_TEXTURE_ENV, "")
+    if not (path and os.path.exists(path)):
+        return False
+    try:
+        img = load_image(path)
+    except Exception:
+        return False
+    return img.shape[0] == img.shape[1] and (
+        img.shape[0] & (img.shape[0] - 1)) == 0
+
+
 def config1_textured_obj(obj_path: str | None = None):
     """Single textured OBJ mesh at 800x600: a uv sphere (9,024 triangles)
     written once to an OBJ file in the temporary directory and read back

@@ -28,12 +28,14 @@ distinct device, and there is no front cache, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from . import _build
 from . import state as state_mod
 from .camera import Camera
 from .config import RendererSettings, derive_raster_config
@@ -212,6 +214,48 @@ class Renderer:
         rebuilt with ``mesh`` in place of ``scene.meshes[mesh_index]``."""
         self.scene.meshes[mesh_index] = mesh
         self.update_settings(self.settings, self.scene)
+
+    def warmup(self, parallel: bool = True, execute: bool = True,
+               verbose: bool = False) -> float:
+        """Pay the first-use costs before the first frame, as the
+        reference's ``warmup`` does; returns seconds spent.
+
+        On a CUDA device, build (where no library is built yet) and load
+        the kernel libraries this renderer's route launches: K4's on the
+        classic route (plain-packed, so no K5), K1's, K2's and K3 / K3F's
+        on the fused one, in row slabs too.  One nvcc process per source,
+        all started together, or one after another with ``parallel=False``.
+        A CPU renderer builds nothing: its wrappers run the plain versions.
+        Then, with ``execute``, render one frame at the default ``Camera()``
+        and wait for the device.  ``verbose`` prints a line per stage on
+        stderr.
+
+        Later frames keep their bits: the warm-up frame's front-cache entry
+        is keyed on its matrices, so it serves only a frame of the same
+        camera, which the front would compute bit for bit."""
+        t0 = time.perf_counter()
+
+        def say(msg):
+            if verbose:
+                print(f"warmup: {msg} [{time.perf_counter() - t0:.1f}s]",
+                      file=sys.stderr, flush=True)
+
+        if self.device.type == "cuda":
+            sources = (("raster_classic.cu",)
+                       if self.settings.pipeline == "classic"
+                       else ("setup.cu", "bincount.cu", "raster.cu"))
+            for group in ((sources,) if parallel
+                          else tuple((s,) for s in sources)):
+                _build.build(group)
+            for s in sources:
+                _build.load(s)
+            say(f"kernel libraries built and loaded: {', '.join(sources)}")
+        if execute:
+            rgba8, _ = self.render_frame(Camera())
+            if rgba8.is_cuda:
+                torch.cuda.synchronize(rgba8.device)
+            say("real frame done")
+        return time.perf_counter() - t0
 
     def render_frame(self, camera: Camera, model_mats: np.ndarray = None,
                      on_stage=_no_stage):

@@ -155,7 +155,19 @@ lines and seconds; any failure raises and the exit code is non-zero):
    the subdiv-5 headline's setup gives the CPU's bounds and run rows (K2),
    for the whole frame and a slab window; ``Renderer`` with
    ``preferred_device_index=0`` and no device renders on cuda:0 the frame
-   of ``device="cuda:0"``.
+   of ``device="cuda:0"``;
+21. ``bench_torch.py`` (the port's ``bench.py``) in this process, every
+   kernel's plain version made to raise and the launch counts zeroed
+   before each run and read after it: the headline (config4 subdiv 8,
+   1080p, ``--frames 10``), ``--config config4_terrain`` and
+   ``--config config5_flythrough`` (``--frames 5``) and ``--sweep
+   --frames 3``.  Each prints one unflagged JSON line with ``value > 0``
+   (the headline's with ``moving_camera_fps``, ``orbit_camera_fps`` and
+   ``static_uncached_fps``); its log holds the fused parity gate EXACT,
+   the hash gate EXACT (config5 without the reference's texture asset:
+   its frame EXACT against the numpy oracle) and the headline's
+   post-motion re-gate EXACT; K1, K2, K3 and K3F launched, K4 in the
+   sweep, K5 not.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -2175,6 +2187,78 @@ def examples_checks(dev, card: str, head5, ref_golden: str) -> None:
         "== golden sha256 EXACT")
 
 
+# bench_torch.py's runs in phase 21: (label, argv)
+BENCH_RUNS = (
+    ("headline", ["--frames", "10"]),
+    ("terrain", ["--config", "config4_terrain", "--frames", "5"]),
+    ("config5", ["--config", "config5_flythrough", "--frames", "5"]),
+    ("sweep", ["--sweep", "--frames", "3"]),
+)
+BENCH_FLAGS = ("[PARITY GATE FAILED]", "[HEADLINE HASH MISMATCH]")
+
+
+def bench_checks(card: str) -> dict:
+    """Phase 21: ``bench_torch.main`` in this process (the card by
+    default) on the headline, terrain, config5 and the sweep, every
+    kernel's plain version made to raise and the launch counts zeroed
+    before each run and read after it.  Each run's stdout is one JSON
+    line, unflagged, with ``value > 0``; the headline's has the three
+    config4 keys.  The log must hold the fused parity gate, the hash gate
+    (config5 without the reference's texture asset: its oracle gate) and,
+    on the headline, the post-motion re-gate, each EXACT.  K1, K2, K3 and
+    K3F must have launched across the runs, K4 in the sweep, K5 not.
+    Returns the launch counts summed over the runs."""
+    import collections
+    import contextlib
+    import io
+
+    import bench_torch
+    from ash_renderer_tpu_torch import benchmarks
+
+    gate = "parity gate (256x192, 160 tris, fused): EXACT"
+    config5 = ("headline hash gate" if benchmarks.reference_texture_found()
+               else "headline oracle gate") + " (800x600, 34048 tris): EXACT"
+    want = {
+        "headline": (gate, "headline hash gate (1920x1080, 1310720 tris): "
+                     "EXACT", "post-motion static re-gate: EXACT"),
+        "terrain": (gate, "headline hash gate (1920x1080, 1002528 tris): "
+                    "EXACT"),
+        "config5": (gate, config5),
+        "sweep": tuple(f"{name:22s}" for name in benchmarks.ALL_CONFIGS),
+    }
+    total = collections.Counter()
+    for label, argv in BENCH_RUNS:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            _, counts, dt, out = run_counted(lambda: bench_torch.main(argv))
+        log = err.getvalue()
+        for line in log.splitlines():
+            say(f"  bench_torch {label}: {line}")
+        lines = out.strip().splitlines()
+        require(len(lines) == 1, f"bench_torch {label}: {len(lines)} stdout "
+                "lines, not one")
+        res = json.loads(lines[0])
+        require(not any(f in res["metric"] for f in BENCH_FLAGS),
+                f"bench_torch {label}: flagged: {res['metric']}")
+        require(res["value"] > 0, f"bench_torch {label}: value {res['value']}")
+        if label == "headline":
+            for k in ("moving_camera_fps", "orbit_camera_fps",
+                      "static_uncached_fps"):
+                require(res.get(k, 0) > 0, f"bench_torch headline: no {k}")
+        for w in want[label]:
+            require(w in log, f"bench_torch {label}: no '{w}' in its log")
+        if label == "sweep":
+            require(counts.get("K4_raster_classic", 0) > 0,
+                    "bench_torch --sweep: K4 was not launched")
+        total.update(counts)
+        say(f"[{card}] bench_torch {' '.join(argv)}: {json.dumps(res)}; "
+            f"{dt:.1f} s wall; launches {json.dumps(counts, sort_keys=True)}")
+    for k in ("K1_setup", "K2_run_bounds", "K3_raster", "K3F_raster_shade"):
+        require(total.get(k, 0) > 0, f"{k} was not launched by bench_torch")
+    require(total.get("K5_gather_rows", 0) == 0, "bench_torch launched K5")
+    return dict(total)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2517,6 +2601,9 @@ def main() -> int:
     with Phase("20 examples and host helpers on the card"):
         examples_checks(dev, card, (scene5, st5, cams5[0], g5),
                         GOLDEN_SHA["reference"])
+
+    with Phase("21 bench_torch on the card"):
+        bench_checks(card)
 
     meta = {
         "K1": ("K1_setup", "ash_renderer_tpu_torch/csrc/setup.cu",

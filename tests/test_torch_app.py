@@ -325,3 +325,59 @@ def test_serialization_without_atlas_light_or_cameras(tmp_path):
     ref_back, _ = ref_ser.load_scene(path)
     _same_scene(back, ref_back)
     _same(back.meshes[0].positions, sc.meshes[0].positions)
+
+
+# ---------------------------------------------------------------------------
+# warm-up
+# ---------------------------------------------------------------------------
+
+def test_app_takes_the_references_warmup_argument():
+    import inspect
+
+    ref = inspect.signature(RefApp.__init__).parameters
+    port = inspect.signature(app.App.__init__).parameters
+    assert list(port)[: len(ref)] == list(ref)
+    assert port["warmup"].default is ref["warmup"].default is True
+    assert port["warmup"].kind == ref["warmup"].kind
+
+
+@pytest.mark.parametrize("how", ["keyword_true", "keyword_false",
+                                 "positional_false", "default"])
+def test_app_never_warms_a_cpu_renderer(how, monkeypatch):
+    """warmup=True and warmup=False are both accepted (by keyword or in the
+    reference's position); a CPU renderer is never warmed up, as the
+    reference warms up on the TPU only."""
+    def refuse(self, *a, **kw):
+        raise AssertionError("App warmed up a CPU renderer")
+
+    monkeypatch.setattr(Renderer, "warmup", refuse)
+    args = (reference_two_triangle_scene(), RendererSettings(**SETTINGS))
+    a = {
+        "keyword_true": lambda: app.App(*args, warmup=True, device="cpu"),
+        "keyword_false": lambda: app.App(*args, warmup=False, device="cpu"),
+        "positional_false": lambda: app.App(*args, None, 0.01, 0.01, False,
+                                            device="cpu"),
+        "default": lambda: app.App(*args, device="cpu"),
+    }[how]()
+    assert a.renderer.device == torch.device("cpu")
+    assert a.run(1).n_frames == 1
+
+
+def test_app_warms_a_card_renderer_only_when_asked(monkeypatch):
+    """On a CUDA device App calls Renderer.warmup unless warmup=False (the
+    renderer is built on the CPU here and named CUDA, so nothing runs)."""
+    real_init = Renderer.__init__
+
+    def on_a_card(self, *a, **kw):
+        real_init(self, *a, **dict(kw, device="cpu"))
+        self.device = torch.device("cuda", 0)
+
+    calls = []
+    monkeypatch.setattr(app, "require_device", torch.device)
+    monkeypatch.setattr(Renderer, "__init__", on_a_card)
+    monkeypatch.setattr(Renderer, "warmup", lambda self: calls.append(self))
+    args = (reference_two_triangle_scene(), RendererSettings(**SETTINGS))
+    a = app.App(*args)
+    assert calls == [a.renderer]
+    app.App(*args, warmup=False)
+    assert calls == [a.renderer]
