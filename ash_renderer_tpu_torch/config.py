@@ -59,12 +59,15 @@ class RendererSettings:
     fused_front_merge: bool = True
     # Pipeline implementation: "fused" = setup kernel + sort-binned
     # raster/distribute kernel; "classic" = the pair-record pipeline;
-    # "auto" = the Renderer's rule (fused from 4096 triangles, else classic).
+    # "auto" = the Renderer's per-device rule (renderer.auto_route: fused
+    # from 4096 triangles on the CPU, from 320 on a CUDA device).
     pipeline: str = "auto"
     # In-kernel surface shading (phase F: material modulation, mip select,
-    # tap addressing, Blinn-Phong inside the raster kernel).  "auto" = in
-    # the kernel only for UNTEXTURED scenes; "on"/"off" force it (within the
-    # M <= 16 / T <= 2 table caps of pipeline.shade_mode_for).
+    # tap addressing, Blinn-Phong inside the raster kernel).  "on"/"off"
+    # force it (within the M <= 16 / T <= 2 table caps of
+    # pipeline.shade_mode_for).  "auto": on a CUDA device the Renderer
+    # resolves it to "on" (renderer.auto_route); elsewhere, and for direct
+    # pipeline callers, in the kernel only for UNTEXTURED scenes.
     fused_surface_shade: str = "auto"
     # JAX package only: the raster kernel's range streaming form.
     kernel_range_loop: bool = False

@@ -12,8 +12,13 @@ explicit torch device.
 
 ``settings.pipeline`` picks the frame pipeline: "fused" (meshlet packing,
 8x128 tiles, kernels K1-K3/K3F), "classic" (plain packing, 16x128 tiles,
-kernel K4) or "auto", the reference's rule: fused from 4096 triangles,
-classic below.
+kernel K4) or "auto"; ``settings.fused_surface_shade`` picks the fused
+raster's shading, K3F ("on") or K3 ("off").  ``auto_route`` resolves
+"auto" per device, and the resolved values are what ``Renderer.settings``
+holds.  On the CPU it keeps the reference's TPU rule (fused from 4096
+triangles; the shade knob left to ``pipeline.shade_mode_for``); on a CUDA
+device it takes the rule measured on an H100 (fused from 320 triangles,
+"on").
 
 Per frame the host composes the per-object MVP matrices with the oracle's
 ``compose_mvp`` (numpy, so both start from the same bits), and the
@@ -51,7 +56,39 @@ from .present import FrameRing
 from .rtypes import LightPack, MaterialsPack  # noqa: F401  (the reference's re-exports)
 
 F32 = np.float32
-AUTO_FUSED_TRIS = 4096  # "auto" takes the fused pipeline from this many
+AUTO_FUSED_TRIS = 4096  # on the CPU "auto" takes fused from this many
+# The CUDA branch of "auto", set by the decision rule of PERF.md §6 on the
+# interleaved A/B frame times of chip_smoke.py phase 22 on an H100: fused
+# from this many triangles (below it, fused won too few pairs of rounds
+# on the 160-triangle gate scene's orbit in the run that set it), and the
+# raster kernel's phase F (K3F) on every scene, textured or not.
+CUDA_AUTO_FUSED_TRIS = 320
+CUDA_SURFACE_SHADE = "on"
+
+
+def auto_route(settings: RendererSettings, device,
+               n_tris: int) -> RendererSettings:
+    """``settings`` with "auto" resolved for a scene of ``n_tris``
+    triangles (counted over the meshes) on ``device``; "fused", "classic",
+    "on" and "off" are kept as given.
+
+    * CPU (and any device but CUDA): the reference's rule, which encodes
+      TPU measurements: fused from ``AUTO_FUSED_TRIS``, else classic; the
+      shade knob stays "auto", so ``pipeline.shade_mode_for`` applies the
+      reference's meaning (phase F only on an untextured scene).  The CPU
+      is the parity harness: its frames follow the JAX package's "auto".
+    * CUDA: fused from ``CUDA_AUTO_FUSED_TRIS``, else classic; the shade
+      knob ``CUDA_SURFACE_SHADE``.  Under "on" the table caps of
+      ``shade_mode_for`` still send a scene over them to phase E."""
+    cuda = torch.device(device).type == "cuda"
+    if settings.pipeline == "auto":
+        floor = CUDA_AUTO_FUSED_TRIS if cuda else AUTO_FUSED_TRIS
+        settings = dataclasses.replace(
+            settings, pipeline="fused" if n_tris >= floor else "classic")
+    if cuda and settings.fused_surface_shade == "auto":
+        settings = dataclasses.replace(settings,
+                                       fused_surface_shade=CUDA_SURFACE_SHADE)
+    return settings
 
 
 def frame_statics(settings: RendererSettings, n_tris: int, has_atlas: bool,
@@ -149,13 +186,8 @@ class Renderer:
     def _build_settings_dependent(self, scene: Scene, settings: RendererSettings):
         if settings.pipeline not in ("auto", "fused", "classic"):
             raise ValueError(f"unknown pipeline {settings.pipeline!r}")
-        if settings.pipeline == "auto":
-            # the reference's rule, with the card in the TPU's place: fused
-            # from 4096 triangles (counted over the meshes), else classic
-            n_tris = sum(m.num_triangles for m in scene.meshes)
-            settings = dataclasses.replace(
-                settings, pipeline="fused" if n_tris >= AUTO_FUSED_TRIS else "classic"
-            )
+        settings = auto_route(settings, self.device,
+                              sum(m.num_triangles for m in scene.meshes))
         if settings.pipeline == "fused" and settings.fused_tile_h != 8:
             raise ValueError("the port's raster kernel uses 8-row tiles")
         self.scene = scene

@@ -21,10 +21,13 @@ lines and seconds; any failure raises and the exit code is non-zero):
    and it must refuse a key view that is not 16-byte aligned; then K3 and
    K3F on the 150x64 fine-padding scene (fine rows whose true extent runs
    past their 16-px window into the padding columns);
-4. frames through ``Renderer``: the subdiv-5 and subdiv-8 (1,310,720
-   triangles) frames against the sha256 goldens in ``docs/golden/``, then
-   static -> moved -> static, whose last frame must equal the first;
-5. the kernel launch counts of phase 4 (each must be > 0);
+4. frames through ``Renderer``: the subdiv-5 (``fused_surface_shade=
+   "off"``, K3's counted run) and subdiv-8 (1,310,720 triangles, "auto")
+   frames against the sha256 goldens in ``docs/golden/``, then static ->
+   moved -> static, whose last frame must equal the first;
+5. the kernel launch counts of phase 4: the subdiv-5 frame's those of
+   "off", the headline's those of the route "auto" takes on the card
+   (``route_kernels``), each > 0, and none of another route;
 6. CUDA-event timings at subdiv 8: frame ms (static with the front cache
    off, static cached, orbit, fly-by) and ms per stage;
 7. each kernel against its plain version at the headline shapes (subdiv
@@ -46,7 +49,7 @@ lines and seconds; any failure raises and the exit code is non-zero):
    for byte; config4 subdiv 5 and subdiv 8 with "on" equal their goldens;
    static -> moved -> static with "on"; K3F must have launched;
 10. CUDA-event frame ms: config3 "auto" vs "off", and config4 subdiv 8
-   static uncached "on" vs "auto", in turns;
+   static uncached "off" vs "on", in turns;
 11. K5 (the meshlet corner gather) against its plain version, bit for
    bit, at F = 1, 3, 4, 8, 12 and 32 on 1, 2, one more than a full wave of
    its persistent grid (SMs x blocks per SM) and twice that plus one
@@ -63,11 +66,11 @@ lines and seconds; any failure raises and the exit code is non-zero):
    timed one checks that K4's CUDA path refuses to run without
    ``rec_box``;
 12. classic frames, launch counts zeroed before them: the reference scene
-   (320x240) and the four feature scenes through ``Renderer`` ("auto"
-   routes them to classic) against their pinned sha256; the meshlet-packed
+   (320x240) and the four feature scenes through ``Renderer`` with
+   ``pipeline="classic"`` against their pinned sha256; the meshlet-packed
    config4 subdiv-5 and subdiv-8 frames through ``pipeline.render_frame``
    (K5 + K4) against their goldens, with no pair or clip overflow; config2
-   (800x600, "auto" -> classic) byte-equal to the same frame rendered on
+   (800x600, classic) byte-equal to the same frame rendered on
    the CPU, then static -> moved -> static; K4 and K5 must have launched;
    then, outside the counted run, K4 against its plain version on the
    records of the five pinned scenes and config2;
@@ -81,7 +84,7 @@ lines and seconds; any failure raises and the exit code is non-zero):
    plain-packed uploads), launch counts zeroed before it: bench.py's
    parity-gate scene (the same seed and shapes, 256x192, K3F) equals the
    port's numpy oracle and the same function on CPU tensors; the five
-   pinned golden scenes and config4 at subdiv 5 and 8 under "auto" (K3)
+   pinned golden scenes and config4 at subdiv 5 and 8 under "off" (K3)
    and "on" (K3F) equal their sha256; K2, K3 and K3F must have launched,
    K1 and K5 not; then K3 / K3F against their plain versions on the
    fallback's own tables (gate scene, subdiv 8 static, subdiv 5 fly-by),
@@ -105,9 +108,10 @@ lines and seconds; any failure raises and the exit code is non-zero):
    before ``app.main`` and read just after it: ``app.main
    ["config4_terrain"]`` without ``--device`` (the card by default) writes
    a PNG that decodes (stdlib inflate) to ``docs/golden/
-   headline_terrain.json``'s sha256 (1,002,528 triangles, 1920x1080; K1,
-   K2 and K3 launched), ``app.main ["reference", "--size", "320x240"]``
-   to the pinned reference golden (K4); config1 (its OBJ through
+   headline_terrain.json``'s sha256 (1,002,528 triangles, 1920x1080),
+   ``app.main ["reference", "--size", "320x240"]`` to the pinned
+   reference golden, each launching the kernels of the route "auto"
+   takes on the card (``route_kernels``); config1 (its OBJ through
    ``native.parse_obj``, held to the Python parser) over three scripted
    ``App.run`` events, each presented frame equal to the port's oracle at
    the controller's camera; ``request_resize`` recovered inside
@@ -126,7 +130,7 @@ lines and seconds; any failure raises and the exit code is non-zero):
    ``cuda:0`` when there is one card, every kernel's plain version made to
    raise and the launch counts zeroed before the counted frames: config4
    subdiv 8 at 1920x1080 in 8 slabs of 17 tile rows (the last padded past
-   the screen) equals its golden under "auto" (K3) and "on" (K3F), subdiv
+   the screen) equals its golden under "off" (K3) and "on" (K3F), subdiv
    5 in 2 and 3 slabs its golden; fly-by frame 12 in 8 slabs equals the
    single-device frame with the worst slab's wide, pair and clip counters
    live; static -> moved -> static in 8 slabs; the reference scene
@@ -145,9 +149,9 @@ lines and seconds; any failure raises and the exit code is non-zero):
    made to raise and the launch counts zeroed before each run and read
    after it: ``examples/torch_render_scene.py`` (run in this process,
    without ``--device``) on config4 at subdiv 8 (1920x1080) writes a PNG
-   that decodes to the headline golden (K1, K2, K3 launched) and on the
-   reference scene at 320x240 the PNG of ``tests/golden/
-   reference_320x240.png`` (K4); ``torch_inverse_rendering.py`` on the
+   that decodes to the headline golden and on the reference scene at
+   320x240 the PNG of ``tests/golden/reference_320x240.png``, each on the
+   route "auto" takes (``route_kernels``); ``torch_inverse_rendering.py`` on the
    card writes the target PNG of a ``--device cpu`` run byte for byte, its
    loss falls and its last loss is the CPU's within ``INV_LOSS_RTOL``;
    ``torch_interactive.py --frames 8 --size 320x240`` with stdin not a tty
@@ -166,8 +170,28 @@ lines and seconds; any failure raises and the exit code is non-zero):
    ``static_uncached_fps``); its log holds the fused parity gate EXACT,
    the hash gate EXACT (config5 without the reference's texture asset:
    its frame EXACT against the numpy oracle) and the headline's
-   post-motion re-gate EXACT; K1, K2, K3 and K3F launched, K4 in the
-   sweep, K5 not.
+   post-motion re-gate EXACT; K1, K2 and K3F launched, K3 exactly when
+   the CUDA rule's shade knob is "off", K4 in the sweep exactly
+   when a config there takes the classic route, K5 not;
+22. the auto rules (``renderer.auto_route``; ``--auto-rules`` runs phases
+   1, 2 and 22 alone): interleaved A/B rounds in this process (both
+   renderers built and warmed, front cache off, 12 pairs of rounds of 20
+   frames, each pair's order alternating, wall ms between synchronizes
+   and the median CUDA-event frame ms of each round; the alternative
+   clears when it wins 10 of the 12 pairs on the wall metric): classic
+   against fused on every scene the CPU rule sends to classic and on
+   config3 and config4 subdiv 4, static and
+   orbit; "off" against "on" on every textured scene (the fused route),
+   static and orbit, config4 subdiv 8 also on the fly-by and in 8 row
+   slabs; what the decision rule of PERF.md gives on that table beside
+   the constants ``renderer.py`` holds.  Then, every plain version made
+   to raise, for each config of ``ALL_CONFIGS`` and each pinned golden
+   scene the route "auto" resolves to on the card and the kernels one
+   frame launched (those of that route), every frame exact: the goldens
+   against ``tests/golden/*.png``, config4 subdivs 8 and 5 and terrain
+   against ``docs/golden/``, config5 against the port's oracle without
+   the texture asset, the other configs against the port's oracle, and
+   config4 subdiv 8 in 8 row slabs against the single device's frame.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -1118,11 +1142,12 @@ def fallback_checks(dev, card, errs: dict, head5, head8):
     plain-packed uploads.  With the launch counts zeroed just before and
     read just after: bench.py's gate scene, the five pinned golden scenes
     and the config4 frames of ``head5`` and ``head8`` ((scene, settings,
-    camera, golden)) under "auto" and "on".  Then: the gate frame equals
+    camera, golden)) under "off" (K3) and "on" (K3F).  Then: the gate
+    frame equals
     the port's oracle and the CPU frame; every golden holds; K3 / K3F
     equal their plain versions on the fallback's own tables; the head8
     frame's ms beside the staged route's, in turns.
-    Returns (launch counts, the head8 "auto" frame's aux, its Fallback)."""
+    Returns (launch counts, the head8 "off" frame's aux, its Fallback)."""
     import dataclasses
 
     import torch
@@ -1137,7 +1162,7 @@ def fallback_checks(dev, card, errs: dict, head5, head8):
     fb_gold = {name: Fallback(*build(), dev) for name, build in GOLDEN_SCENES.items()}
     heads = []
     for sub, (scene, st, cam, g) in (("5", head5), ("8", head8)):
-        for knob in ("auto", "on"):
+        for knob in ("off", "on"):
             heads.append((f"subdiv-{sub} {knob}", Fallback(
                 scene, dataclasses.replace(st, fused_surface_shade=knob), dev),
                 cam, g))
@@ -1177,16 +1202,16 @@ def fallback_checks(dev, card, errs: dict, head5, head8):
         require(sha(f) == g["sha256"], f"fallback {label}: frame != golden")
         say(f"fallback {label} ({int(aux['n_valid'])} valid setup rows, "
             f"{int(aux['live_rows'])} live rows): golden sha256 EXACT")
-    aux8 = f_head["subdiv-8 auto"][1]
+    aux8 = f_head["subdiv-8 off"][1]
     del f_gold, f_head, fb_gold, fcpu
 
     # K3 / K3F on the fallback's own tables, outside the counted run
     fly = flyby_camera(FLYBY_FRAME, N_FRAMES)
     fbs = {label: fb for label, fb, _, _ in heads}
     for label, fb, cam in (("gate scene", fbg, Camera()),
-                           ("subdiv 8 auto, static", fbs["subdiv-8 auto"], head8[2]),
+                           ("subdiv 8 off, static", fbs["subdiv-8 off"], head8[2]),
                            ("subdiv 8 on, static", fbs["subdiv-8 on"], head8[2]),
-                           ("subdiv 5 auto, fly-by", fbs["subdiv-5 auto"], fly),
+                           ("subdiv 5 off, fly-by", fbs["subdiv-5 off"], fly),
                            ("subdiv 5 on, fly-by", fbs["subdiv-5 on"], fly)):
         tables, smode, consts, stats = fb.tables(cam)
         compare_raster(tables, fb.cfg, smode, consts, f"fallback {label}", errs)
@@ -1195,17 +1220,17 @@ def fallback_checks(dev, card, errs: dict, head5, head8):
                     f"fallback {label}: the frame neither clips nor expands "
                     "wide pairs")
         del tables
-    fb8 = fbs["subdiv-8 auto"]
+    fb8 = fbs["subdiv-8 off"]
     del heads, fbs
 
     # frame ms beside the staged route's, in turns
     scene8, st8, cam8, _ = head8
-    r8u = Renderer(scene8, dataclasses.replace(st8, front_coherence=False),
-                   device=dev)
+    r8u = Renderer(scene8, dataclasses.replace(
+        st8, front_coherence=False, fused_surface_shade="off"), device=dev)
     legs = (("staged", r8u), ("fallback", fb8))
     for name, r in legs + legs[::-1]:
         med, mean, worst = frames_ms(r, [cam8] * N_FRAMES)
-        say(f"[{card}] frame ms, subdiv 8 static uncached auto, {name}: median "
+        say(f"[{card}] frame ms, subdiv 8 static uncached off, {name}: median "
             f"{med:.3f}, mean {mean:.3f}, max {worst:.3f} ({N_FRAMES} frames)")
     del r8u
     stage_ms(fb8, cam8)  # warm-up
@@ -1412,9 +1437,10 @@ def untextured_gltf(path: str) -> None:
 
 def app_checks(dev, card: str, ref_golden: str) -> dict:
     """Phase 17: the app, the asset loaders and serialization on the card.
-    ``app.main`` without ``--device`` renders config4_terrain (K1-K3,
-    launch counts zeroed just before and read just after) and the reference
-    scene at 320x240 (K4) to PNGs that decode to their goldens; config1
+    ``app.main`` without ``--device`` renders config4_terrain and the
+    reference scene at 320x240 (launch counts zeroed just before and read
+    just after: the kernels of the route "auto" takes on the card,
+    ``route_kernels``) to PNGs that decode to their goldens; config1
     (its OBJ through the native parser) runs App.run over scripted input
     with every presented frame equal to the port's oracle at the
     controller's camera, then self-recovers a resize and takes a mesh edit;
@@ -1443,6 +1469,7 @@ def app_checks(dev, card: str, ref_golden: str) -> dict:
     os.makedirs(out)
 
     # config4_terrain through the CLI, on the card by default
+    scene_t, st_t, _ = benchmarks.config4_terrain()
     gt = golden("headline_terrain.json")
     torch.cuda.synchronize()
     _build.launches.clear()
@@ -1453,29 +1480,31 @@ def app_checks(dev, card: str, ref_golden: str) -> dict:
     t_main = time.perf_counter() - t0
     counts = dict(_build.launches)
     say(json.dumps(counts, sort_keys=True))
-    for k in ("K1_setup", "K2_run_bounds", "K3_raster"):
-        require(counts.get(k, 0) > 0, f"{k} was not launched by app.main "
-                "config4_terrain")
+    route_t = require_route("app.main config4_terrain", counts,
+                            Renderer(scene_t, st_t, device=dev))
     ft = decode_png(paths[0])
     covered = int((ft[..., :3] != 0).any(axis=-1).sum())
     require(sha(ft) == gt["sha256"], f"terrain: app.main frame sha256 "
             f"{sha(ft)} != golden {gt['sha256']}")
     say(f"app.main config4_terrain ({gt['n_tris']} tris, {ft.shape[1]}x"
-        f"{ft.shape[0]}, {covered} non-black px): PNG decodes to the golden "
+        f"{ft.shape[0]}, {covered} non-black px, {route_t}): PNG decodes "
+        "to the golden "
         f"sha256 EXACT ({t_main:.1f} s: scene, meshlets, upload, frame, PNG)")
 
-    # the reference scene through the CLI: the classic route, K4
+    # the reference scene through the CLI, on the route "auto" takes
     _build.launches.clear()
     paths = app.main(["reference", "--size", "320x240", "--out",
                       os.path.join(out, "reference")])
     torch.cuda.synchronize()
     counts_r = dict(_build.launches)
-    require(counts_r.get("K4_raster_classic", 0) > 0,
-            "K4 was not launched by app.main reference")
+    scene_r, st_r, _ = benchmarks.ALL_CONFIGS["reference"]()
+    route_r = require_route("app.main reference", counts_r, Renderer(
+        scene_r, dataclasses.replace(st_r, width=320, height=240), device=dev))
     fr = decode_png(paths[0])
     require(sha(fr) == ref_golden, "reference 320x240: app.main frame != golden")
-    say(f"app.main reference 320x240 (classic, K4 {counts_r.get('K4_raster_classic', 0)}"
-        "x): PNG decodes to the golden sha256 EXACT")
+    say(f"app.main reference 320x240 ({route_r}, launches "
+        f"{json.dumps(counts_r, sort_keys=True)}): PNG decodes to the golden "
+        "sha256 EXACT")
 
     # config1: the OBJ through the native parser, then App.run
     require(native.available(), "no host C++ compiler for the OBJ parser")
@@ -1569,7 +1598,6 @@ def app_checks(dev, card: str, ref_golden: str) -> dict:
     del r5, rb
 
     # frame rates through App.run
-    scene_t, st_t, _ = benchmarks.config4_terrain()
     for label, sc, st in (("config4_terrain", scene_t, st_t),
                           ("config1", scene1, st1)):
         app_fps(card, f"{label} {st.width}x{st.height}", sc, st, dev, N_FRAMES)
@@ -1610,9 +1638,10 @@ def diffrender_checks(dev, card: str) -> None:
     scene.add_object(SceneObject(mesh=scene.add_mesh(mesh),
                                  model=mathx.translation([0, 0, 3])))
     cam = Camera()
-    r = Renderer(scene, RendererSettings(width=128, height=128, clip_budget=64),
-                 device=dev)
-    require(r.settings.pipeline == "classic", "diffrender scene is not classic")
+    # "classic" named: diffrender takes the classic route's visibility,
+    # whatever "auto" takes for a frame of this scene
+    r = Renderer(scene, RendererSettings(width=128, height=128, clip_budget=64,
+                                         pipeline="classic"), device=dev)
     _build.launches.clear()
     _, aux = r.render_frame(cam)
     vis_card = aux["vis_tri"].cpu().numpy()
@@ -1841,12 +1870,14 @@ def slab_checks(dev, card: str, errs: dict, head5, head8) -> dict:
     torch.cuda.reset_peak_memory_stats()
     nocache = dataclasses.replace(st8, front_coherence=False)
     on = dataclasses.replace(st8, fused_surface_shade="on")
-    r8_8 = Renderer(scene8, st8, mesh=emulated(8))
+    r8_8 = Renderer(scene8, dataclasses.replace(st8, fused_surface_shade="off"),
+                    mesh=emulated(8))
     r8on_8 = Renderer(scene8, on, mesh=emulated(8))
     r8_1 = Renderer(scene8, nocache, device=dev)
     r5_n = {n: Renderer(scene5, st5, mesh=emulated(n)) for n in (2, 3)}
     ref_scene, ref_st = GOLDEN_SCENES["reference"]()
-    ref_n = {n: Renderer(ref_scene, ref_st, mesh=emulated(n)) for n in (2, 3)}
+    ref_n = {n: Renderer(ref_scene, dataclasses.replace(
+        ref_st, pipeline="classic"), mesh=emulated(n)) for n in (2, 3)}
     r5c = Renderer(scene5, st5, device=dev)  # meshlet-packed state
     cls5 = classic_statics(r5c)
     scene_c5, st_c5, cams_c5 = config5_flythrough()
@@ -1864,7 +1895,7 @@ def slab_checks(dev, card: str, errs: dict, head5, head8) -> dict:
 
     with PlainVersionsRaise():
         _build.launches.clear()
-        for label, r in (("auto (K3)", r8_8), ("on (K3F)", r8on_8)):
+        for label, r in (("off (K3)", r8_8), ("on (K3F)", r8on_8)):
             f, aux = r.render_frame(cam8)
             f = r.read_frame(f)
             require(sha(f) == g8["sha256"],
@@ -1942,7 +1973,7 @@ def slab_checks(dev, card: str, errs: dict, head5, head8) -> dict:
             "it); no frame ran on distinct cards")
 
     # K3 and K3F on a middle slab's tables against their plain versions
-    compare_slab_raster(r8_8, cam8, 4 * rows8, rows8, "subdiv 8 auto", errs)
+    compare_slab_raster(r8_8, cam8, 4 * rows8, rows8, "subdiv 8 off", errs)
     compare_slab_raster(r8on_8, cam8, 4 * rows8, rows8, "subdiv 8 on", errs)
     compare_slab_raster(r8_8, flyby, 3 * rows8, rows8, "subdiv 8 fly-by", errs)
     del r8_8, r8on_8, r5_n, ref_n, r5c, rc5_1, rc5_2
@@ -2017,13 +2048,16 @@ def run_example(name: str, argv: list, **kw):
         sys.argv = saved
 
 
-def examples_checks(dev, card: str, head5, ref_golden: str) -> None:
+def examples_checks(dev, card: str, head5, r8, ref_golden: str) -> None:
     """Phase 20: the port's examples and last host helpers on the card,
     every kernel's plain version made to raise and the launch counts zeroed
     before each run and read after it.  ``examples/torch_render_scene.py``
-    without ``--device`` on config4 at subdiv 8 (1080p) writes a PNG that
-    decodes to the headline golden (K1, K2, K3) and on the reference scene
-    at 320x240 one equal to ``tests/golden/reference_320x240.png`` (K4);
+    without ``--device`` on config4 at subdiv 8 (1080p; ``r8``: its
+    Renderer on the card) writes a PNG that decodes to the headline golden
+    and on the reference scene at 320x240 one equal to
+    ``tests/golden/reference_320x240.png``, each launching the kernels of
+    the route "auto" takes on the card (``route_kernels`` of a default
+    Renderer of the same scene);
     ``torch_inverse_rendering.py`` on the card writes the CPU run's target
     PNG byte for byte, its loss falls and its last loss is the CPU's within
     ``INV_LOSS_RTOL``; ``torch_interactive.py`` runs 8 frames unattended
@@ -2039,6 +2073,7 @@ def examples_checks(dev, card: str, head5, ref_golden: str) -> None:
     import numpy as np
     import torch
 
+    from ash_renderer_tpu_torch import benchmarks
     from ash_renderer_tpu_torch.ops import binsort, geometry
     from ash_renderer_tpu_torch.renderer import Renderer
     from ash_renderer_tpu_torch.rtypes import TriangleSetup
@@ -2055,14 +2090,14 @@ def examples_checks(dev, card: str, head5, ref_golden: str) -> None:
         ["config4_million_tri", "--frames", "1", "--out", d8])
     say(text.strip())
     say(json.dumps(counts, sort_keys=True))
-    for k in ("K1_setup", "K2_run_bounds", "K3_raster"):
-        require(counts.get(k, 0) > 0, f"{k} was not launched by "
-                "torch_render_scene.py config4_million_tri")
+    route8 = require_route("torch_render_scene.py config4_million_tri",
+                           counts, r8)
     f8 = decode_png(os.path.join(d8, "frame_0000.png"))
     require(sha(f8) == g8["sha256"], f"torch_render_scene.py config4: PNG "
             f"sha256 {sha(f8)} != golden {g8['sha256']}")
     say(f"[{card}] examples/torch_render_scene.py config4_million_tri "
-        f"({g8['n_tris']} tris, {f8.shape[1]}x{f8.shape[0]}): PNG decodes to "
+        f"({g8['n_tris']} tris, {f8.shape[1]}x{f8.shape[0]}, {route8}): PNG "
+        "decodes to "
         f"the golden sha256 EXACT; {dt:.2f} s wall (scene, meshlets, upload, "
         "frame, PNG)")
 
@@ -2070,17 +2105,20 @@ def examples_checks(dev, card: str, head5, ref_golden: str) -> None:
     _, counts, dt, text = run_example(
         "torch_render_scene.py", ["reference", "--size", "320x240", "--out",
                                   dref])
-    require(counts.get("K4_raster_classic", 0) > 0,
-            "K4 was not launched by torch_render_scene.py reference")
+    scene_r, st_r, _ = benchmarks.ALL_CONFIGS["reference"]()
+    route_r = require_route(
+        "torch_render_scene.py reference", counts, Renderer(
+            scene_r, dataclasses.replace(st_r, width=320, height=240),
+            device=dev))
     fr = decode_png(os.path.join(dref, "frame_0000.png"))
     want = decode_png(os.path.join(ROOT, "tests", "golden",
                                    "reference_320x240.png"))
     require(fr.shape == want.shape and (fr == want).all() and
             sha(fr) == ref_golden,
             "torch_render_scene.py reference 320x240 != tests/golden PNG")
-    say(f"[{card}] examples/torch_render_scene.py reference 320x240 (classic, "
-        f"K4 {counts.get('K4_raster_classic', 0)}x): PNG == tests/golden/"
-        f"reference_320x240.png; {dt:.2f} s wall")
+    say(f"[{card}] examples/torch_render_scene.py reference 320x240 "
+        f"({route_r}, launches {json.dumps(counts, sort_keys=True)}): PNG == "
+        f"tests/golden/reference_320x240.png; {dt:.2f} s wall")
 
     # the inverse-rendering example on the card and on the CPU
     inv = runpy.run_path(os.path.join(ROOT, "examples",
@@ -2177,9 +2215,7 @@ def examples_checks(dev, card: str, head5, ref_golden: str) -> None:
             f"preferred_device_index=0: renderer on {ri.device}")
     fi, counts, _, _ = run_counted(lambda: ri.read_frame(
         ri.render_frame(cam5)[0]))
-    for k in ("K1_setup", "K2_run_bounds", "K3_raster"):
-        require(counts.get(k, 0) > 0, f"{k} was not launched by the "
-                "preferred_device_index renderer")
+    require_route("the preferred_device_index renderer", counts, ri)
     require((fi == f_dev).all() and sha(fi) == g5["sha256"],
             "preferred_device_index=0: frame != the device='cuda:0' frame")
     say("Renderer(RendererSettings(preferred_device_index=0)) without a "
@@ -2205,15 +2241,19 @@ def bench_checks(card: str) -> dict:
     line, unflagged, with ``value > 0``; the headline's has the three
     config4 keys.  The log must hold the fused parity gate, the hash gate
     (config5 without the reference's texture asset: its oracle gate) and,
-    on the headline, the post-motion re-gate, each EXACT.  K1, K2, K3 and
-    K3F must have launched across the runs, K4 in the sweep, K5 not.
-    Returns the launch counts summed over the runs."""
+    on the headline, the post-motion re-gate, each EXACT.  K1, K2 and K3F
+    (the parity gate) must have launched across the runs, K3 exactly when
+    the CUDA rule's shade knob is "off" (every config is within the table
+    caps), K4 in
+    the sweep exactly when its log routes a config to "[classic]", K5
+    never.  Returns the launch counts summed over the runs."""
     import collections
     import contextlib
     import io
 
     import bench_torch
     from ash_renderer_tpu_torch import benchmarks
+    from ash_renderer_tpu_torch.renderer import CUDA_SURFACE_SHADE
 
     gate = "parity gate (256x192, 160 tris, fused): EXACT"
     config5 = ("headline hash gate" if benchmarks.reference_texture_found()
@@ -2248,18 +2288,431 @@ def bench_checks(card: str) -> dict:
         for w in want[label]:
             require(w in log, f"bench_torch {label}: no '{w}' in its log")
         if label == "sweep":
-            require(counts.get("K4_raster_classic", 0) > 0,
-                    "bench_torch --sweep: K4 was not launched")
+            classic = "[classic]" in log
+            require((counts.get("K4_raster_classic", 0) > 0) == classic,
+                    f"bench_torch --sweep: K4 launched "
+                    f"{counts.get('K4_raster_classic', 0)}x, a config routed "
+                    f"to classic: {classic}")
         total.update(counts)
         say(f"[{card}] bench_torch {' '.join(argv)}: {json.dumps(res)}; "
             f"{dt:.1f} s wall; launches {json.dumps(counts, sort_keys=True)}")
-    for k in ("K1_setup", "K2_run_bounds", "K3_raster", "K3F_raster_shade"):
+    for k in ("K1_setup", "K2_run_bounds", "K3F_raster_shade"):
         require(total.get(k, 0) > 0, f"{k} was not launched by bench_torch")
+    require((total.get("K3_raster", 0) > 0) == (CUDA_SURFACE_SHADE == "off"),
+            f"bench_torch: K3 launched {total.get('K3_raster', 0)}x under "
+            f"CUDA_SURFACE_SHADE {CUDA_SURFACE_SHADE!r}")
     require(total.get("K5_gather_rows", 0) == 0, "bench_torch launched K5")
     return dict(total)
 
 
-def main() -> int:
+# phase 22: the auto rules.  Interleaved A/B pairs of rounds on one card
+# (the decision rule they feed is written in PERF.md §6), then the routes
+# "auto" takes on the card, each frame held exact.  An alternative clears a
+# cell when its round beats the reference rule's route (the CPU's, which
+# the card took before this measurement) in at least AB_WINS of the AB_PAIRS
+# pairs on the wall metric (a one-sided sign test, p = 0.019): a bar that
+# does not grow with the number of rounds, and that a drift of the host's
+# speed across the cell, which both rounds of a pair share, does not move
+AB_PAIRS = 12
+AB_WINS = 10
+AB_FRAMES = 20
+
+
+def _ab_orbit(radius: float, center=None, height: float = 0.0):
+    """AB_FRAMES cameras once round ``center`` (default [0, 0, radius], so
+    frame 0 is the default ``Camera()`` at the origin looking down +Z)."""
+    from ash_renderer_tpu_torch.camera import orbit_path
+
+    return orbit_path(AB_FRAMES, radius=radius, height=height,
+                      center=[0.0, 0.0, radius] if center is None else center)
+
+
+def ab_scene_builders() -> dict:
+    """{label: builder} of every scene phase 22 times; a builder returns
+    (scene, settings, static camera, orbit cameras).  Each orbit circles
+    the scene's own centre (the goldens' objects, config4's sphere) at the
+    static camera's distance; terrain's and config5's keep their heights."""
+    from ash_renderer_tpu_torch import benchmarks as bm
+    from ash_renderer_tpu_torch.camera import Camera
+
+    def golden_scene(name, radius):
+        def build():
+            sc, st = bm.GOLDEN_SCENES[name]()
+            return sc, st, Camera(), _ab_orbit(radius)
+        return build
+
+    def config(fn, radius, *args, center=None, height=0.0):
+        def build():
+            sc, st, cams = fn(*args)
+            return sc, st, cams[0], _ab_orbit(radius, center, height)
+        return build
+
+    def gate():
+        sc, st = gate_scene()
+        return sc, st, Camera(), _ab_orbit(3.5)
+
+    c4 = bm.config4_million_tri
+    return {
+        "reference 320x240": golden_scene("reference", 2.5),
+        "textured_mipmap": golden_scene("textured_mipmap", 2.2),
+        "blinn_phong_specular": golden_scene("blinn_phong_specular", 2.6),
+        "multi_material": golden_scene("multi_material", 2.6),
+        "ssaa_srgb": golden_scene("ssaa_srgb", 2.4),
+        "gate scene": gate,
+        "config2": config(bm.config2_multi_mesh, 4.0),
+        **{f"config4 subdiv {s}": config(c4, 2.0, s)
+           for s in (1, 2, 3, 4, 5, 8)},
+        "config3": config(bm.config3_blinn_phong, 3.0),
+        "config1": config(bm.config1_textured_obj, 3.0),
+        "config5": config(bm.config5_flythrough, 5.0, center=[0.0, 0.0, 0.0],
+                          height=-1.5),
+        "terrain": config(bm.config4_terrain, 6.0, center=[0.0, 0.0, 0.0],
+                          height=-2.0),
+    }
+
+
+# the pipeline rule's scenes: every one the CPU rule sends to classic, then
+# two from 4096 triangles up (where the CPU rule takes fused)
+AB_PIPELINE_SCENES = ("reference 320x240", "gate scene", "ssaa_srgb",
+                      "config4 subdiv 1", "config4 subdiv 2", "multi_material",
+                      "blinn_phong_specular", "config4 subdiv 3",
+                      "textured_mipmap", "config2", "config3",
+                      "config4 subdiv 4")
+# the shade rule's scenes: every textured one, on the fused route
+AB_SHADE_SCENES = ("ssaa_srgb", "multi_material", "textured_mipmap",
+                   "config4 subdiv 1", "config4 subdiv 2", "config4 subdiv 3",
+                   "config1", "config4 subdiv 5", "config5", "terrain",
+                   "config4 subdiv 8")
+
+
+def ab_round(r, cams):
+    """One round of ``r``'s frames over ``cams``: (wall ms per frame
+    between two synchronizes, as ``bench_torch.py`` times it; median
+    CUDA-event frame ms, as phase 6 times it)."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(cams) + 1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    for c, e in zip(cams, ev[1:]):
+        r.render_frame(c)
+        e.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / len(cams)
+    per = sorted(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+    return wall, per[len(per) // 2]
+
+
+def ab_cell(card: str, group: str, scene: str, n_tris: int, regime: str,
+            legs, cams) -> dict:
+    """AB_PAIRS pairs of rounds over ``cams`` of two warmed legs, ((the
+    reference rule's route, renderer), (the alternative, renderer)), each
+    pair's order alternating (A B, B A, A B, ...).  A pair is the
+    alternative's win on a metric when its round's number is the lower;
+    the alternative clears when it wins at least AB_WINS pairs on the wall
+    metric (the event metric's wins are reported beside it)."""
+    import statistics
+
+    import torch
+
+    for _, r in legs:
+        for c in cams[:2]:
+            r.render_frame(c)
+    torch.cuda.synchronize()
+    rounds = {name: [] for name, _ in legs}
+    for i in range(AB_PAIRS):
+        for name, r in (legs if i % 2 == 0 else legs[::-1]):
+            rounds[name].append(ab_round(r, cams))
+    (a, _), (b, _) = legs
+    row = {"group": group, "scene": scene, "n_tris": n_tris,
+           "regime": regime, "today": a, "alt": b}
+    text = []
+    for i, metric in enumerate(("wall", "event")):
+        xa = [x[i] for x in rounds[a]]
+        xb = [x[i] for x in rounds[b]]
+        wins = sum(x < y for x, y in zip(xb, xa))
+        row[metric] = {a: xa, b: xb, "wins": wins}
+        text.append(f"{metric} ms {a} {statistics.median(xa):.3f} {b} "
+                    f"{statistics.median(xb):.3f}, {b} wins {wins}/{AB_PAIRS}")
+    row["clears"] = row["wall"]["wins"] >= AB_WINS
+    say(f"[{card}] A/B {group} | {scene} ({n_tris} tris) | {regime} | "
+        + " | ".join(text) + f" | {b} clears: "
+        + ("yes" if row["clears"] else "no"))
+    return row
+
+
+def auto_rule_ab(dev, card: str) -> list:
+    """The A/B table of both auto rules: AB_PAIRS interleaved pairs of
+    rounds of AB_FRAMES frames a cell, every renderer built and warmed
+    first, with its front cache off (an orbit misses it anyway), every
+    plain version made to raise.  Returns the rows (``ab_cell``).
+
+    * Pipeline: classic against fused on each of AB_PIPELINE_SCENES,
+      static and orbit.  The fused leg takes the reference's shade meaning
+      ("off" on a textured scene, "on" otherwise), so that the shade rule
+      is measured apart.
+    * Shade: "off" (the CPU rule's route on a textured scene) against
+      "on" on each of AB_SHADE_SCENES on the fused route, static and
+      orbit; config4 subdiv 8 also on the fly-by and in 8 row slabs on
+      this card (static)."""
+    import dataclasses
+
+    import torch
+
+    from ash_renderer_tpu_torch.parallel import make_render_mesh
+    from ash_renderer_tpu_torch.renderer import Renderer
+
+    builders = ab_scene_builders()
+    rows = []
+
+    def legs_of(sc, st, routes, **kw):
+        return [(name, Renderer(sc, dataclasses.replace(
+            st, front_coherence=False, **knobs), **kw))
+            for name, knobs in routes]
+
+    with PlainVersionsRaise():
+        for label in AB_PIPELINE_SCENES:
+            sc, st, cam, orbit = builders[label]()
+            n = sum(m.num_triangles for m in sc.meshes)
+            routes = [("classic", dict(pipeline="classic")),
+                      ("fused", dict(pipeline="fused", fused_surface_shade=(
+                          "off" if sc.atlas is not None else "on")))]
+            if n >= 4096:  # the CPU rule takes fused there
+                routes.reverse()
+            legs = legs_of(sc, st, routes, device=dev)
+            for regime, cams in (("static", [cam] * AB_FRAMES),
+                                 ("orbit", orbit)):
+                rows.append(ab_cell(card, "pipeline", label, n, regime, legs,
+                                    cams))
+            del legs
+        for label in AB_SHADE_SCENES:
+            sc, st, cam, orbit = builders[label]()
+            n = sum(m.num_triangles for m in sc.meshes)
+            routes = [(k, dict(pipeline="fused", fused_surface_shade=k))
+                      for k in ("off", "on")]
+            cells = [("static", [cam] * AB_FRAMES), ("orbit", orbit)]
+            if label == "config4 subdiv 8":
+                cells.append(("fly-by", [flyby_camera(i, AB_FRAMES)
+                                         for i in range(AB_FRAMES)]))
+            legs = legs_of(sc, st, routes, device=dev)
+            for regime, cams in cells:
+                rows.append(ab_cell(card, "shade", label, n, regime, legs,
+                                    cams))
+            del legs
+            if label == "config4 subdiv 8":
+                legs = legs_of(sc, st, routes,
+                               mesh=make_render_mesh([dev] * 8))
+                rows.append(ab_cell(card, "shade", label, n,
+                                    "8 row slabs, static", legs,
+                                    [cam] * AB_FRAMES))
+                del legs
+        torch.cuda.synchronize()
+    return rows
+
+
+def ab_decision(rows):
+    """What the decision rule gives on the A/B table: (the CUDA pipeline
+    threshold, the CUDA textured shade mode).
+
+    * Fused replaces classic from the smallest triangle count from which
+      it clears on every scene and regime above it: 0 if it clears on
+      every scene measured, the CPU rule's 4096 if it fails on the largest
+      classic one.  None where classic clears on a scene from 4096 up
+      (the rule would have to rise: not a case the constants cover).
+    * "on" replaces "off" only if it clears on every textured scene and
+      regime."""
+    from ash_renderer_tpu_torch.renderer import AUTO_FUSED_TRIS
+
+    pipe = [r for r in rows if r["group"] == "pipeline"]
+    if any(r["clears"] for r in pipe if r["today"] == "fused"):
+        threshold = None
+    else:
+        counts = sorted({r["n_tris"] for r in pipe if r["today"] == "classic"},
+                        reverse=True)
+        threshold = 0
+        for i, n in enumerate(counts):
+            if not all(r["clears"] for r in pipe
+                       if r["today"] == "classic" and r["n_tris"] == n):
+                threshold = counts[i - 1] if i else AUTO_FUSED_TRIS
+                break
+    shade = [r["clears"] for r in rows if r["group"] == "shade"]
+    return threshold, "on" if all(shade) else "off"
+
+
+def route_kernels(r):
+    """(the Renderer ``r``'s route as "pipeline / shade", the kernels each
+    of its frames must launch, the kernels it must not launch): its
+    resolved ``settings.pipeline``, and on the fused route K3F exactly
+    where ``pipeline.shade_mode_for`` gives its statics a shade mode (the
+    table caps included).  The Renderer packs the classic route plainly,
+    so K5 is never among them."""
+    from ash_renderer_tpu_torch import pipeline
+
+    st = r.settings
+    route = f"{st.pipeline} / {st.fused_surface_shade}"
+    if st.pipeline == "classic":
+        return route, {"K4_raster_classic"}, {
+            "K1_setup", "K2_run_bounds", "K3_raster", "K3F_raster_shade",
+            "K5_gather_rows"}
+    s = r.state
+    phase_f = pipeline.shade_mode_for(
+        r.statics, s.materials, s.atlas if r.statics.has_atlas else None,
+        s.light if r.statics.has_light else None) is not None
+    k3, other = (("K3F_raster_shade", "K3_raster") if phase_f
+                 else ("K3_raster", "K3F_raster_shade"))
+    return route, {"K1_setup", "K2_run_bounds", k3}, {
+        "K4_raster_classic", "K5_gather_rows", other}
+
+
+def require_route(label: str, counts: dict, r) -> str:
+    """Fail unless ``counts`` (one run's launches) holds every kernel of
+    the Renderer ``r``'s route (``route_kernels``) and none it excludes;
+    returns the route as "pipeline / shade"."""
+    route, must, must_not = route_kernels(r)
+    require(all(counts.get(k, 0) > 0 for k in must)
+            and not any(counts.get(k, 0) for k in must_not),
+            f"{label}: launches {counts} are not route {route}'s")
+    return route
+
+
+def auto_route_gates(dev, card: str, head8) -> dict:
+    """The routes "auto" now takes on the card: for every config of
+    ``benchmarks.ALL_CONFIGS`` and each pinned golden scene, a default
+    ``Renderer`` on the card, its resolved (pipeline, shade) and the
+    kernels one frame launched (every plain version raising, the counts
+    zeroed just before the frame and read just after).  The launched
+    kernels must be the resolved route's; every frame must be exact: the
+    goldens against ``tests/golden/*.png``, config4 subdivs 8 and 5 and
+    terrain against ``docs/golden/``, config5 against its golden where the
+    reference's texture asset is present, else against the port's oracle
+    (``bench_torch.oracle_frame``), the other configs against the port's
+    oracle; config4 subdiv 8 in 8 row slabs against the single device's
+    frame.  ``head8``: config4 subdiv 8's (scene, settings, camera), built
+    once by the caller.  Returns the launch counts summed over the
+    frames."""
+    import collections
+
+    import numpy as np
+
+    import bench_torch
+    from ash_renderer_tpu_torch import benchmarks as bm
+    from ash_renderer_tpu_torch.camera import Camera
+    from ash_renderer_tpu_torch.parallel import make_render_mesh
+    from ash_renderer_tpu_torch.renderer import (CUDA_AUTO_FUSED_TRIS,
+                                                 CUDA_SURFACE_SHADE, Renderer,
+                                                 auto_route)
+
+    say(f"renderer.py: CUDA_AUTO_FUSED_TRIS = {CUDA_AUTO_FUSED_TRIS}, "
+        f"CUDA_SURFACE_SHADE = {CUDA_SURFACE_SHADE!r}")
+    pngs = {name: os.path.join(ROOT, "tests", "golden",
+                               "reference_320x240.png" if name == "reference"
+                               else f"golden_{name}.png")
+            for name in bm.GOLDEN_SCENES}
+    docs = {"config4_million_tri": "headline_config4.json",
+            "config4_terrain": "headline_terrain.json"}
+    total = collections.Counter()
+
+    def check(label, r, settings, cam, want):
+        """One counted frame of ``r``, built from ``settings``;
+        ``want(frame)`` -> (ok, what)."""
+        st = auto_route(settings, r.device,
+                        sum(m.num_triangles for m in r.scene.meshes))
+        require(r.settings == st and st.pipeline in ("fused", "classic")
+                and st.fused_surface_shade in ("on", "off"),
+                f"{label}: resolved to {r.settings.pipeline} / "
+                f"{r.settings.fused_surface_shade}, auto_route gives "
+                f"{st.pipeline} / {st.fused_surface_shade}")
+        f, counts, _, _ = run_counted(lambda: r.read_frame(
+            r.render_frame(cam)[0]))
+        route = require_route(label, counts, r)
+        ok, what = want(f)
+        require(ok, f"{label} on its auto route: frame != {what}")
+        total.update(counts)
+        say(f"[{card}] auto route | {label} "
+            f"({sum(m.num_triangles for m in r.scene.meshes)} tris, "
+            f"{f.shape[1]}x{f.shape[0]}) | {route} | launches "
+            f"{json.dumps(counts, sort_keys=True)} | {what}: EXACT")
+        return f
+
+    for name, build in bm.GOLDEN_SCENES.items():
+        sc, st = build()
+        png = decode_png(pngs[name])
+        check(f"golden {name}", Renderer(sc, st, device=dev), st, Camera(),
+              lambda f: (f.shape == png.shape and (f == png).all()
+                         and sha(f) == bm.GOLDEN_SHA[name],
+                         f"tests/golden/{os.path.basename(pngs[name])}"))
+    for name, build in bm.ALL_CONFIGS.items():
+        if name == "config4_million_tri":
+            sc, st, cam = head8
+        else:
+            sc, st, cams = build()
+            cam = cams[0]
+        r = Renderer(sc, st, device=dev)
+        if name in docs:
+            g = golden(docs[name])
+            want = (lambda f, g=g, d=docs[name]: (sha(f) == g["sha256"],
+                                                  f"docs/golden/{d}"))
+        elif name == "config5_flythrough" and not bm.reference_texture_found():
+            o = bench_torch.oracle_frame(name)
+            want = (lambda f, o=o: (np.array_equal(f, o),
+                                    "the port's oracle (bench_torch."
+                                    "oracle_frame; no texture asset)"))
+        elif name == "config5_flythrough":
+            g = golden("headline_config5.json")
+            want = (lambda f, g=g: (sha(f) == g["sha256"],
+                                    "docs/golden/headline_config5.json"))
+        else:
+            o = oracle_frame(r, cam)[0]["rgba8"]
+            want = (lambda f, o=o: (np.array_equal(f, o), "the port's oracle"))
+        f = check(name, r, st, cam, want)
+        del r
+        if name == "config4_million_tri":
+            f8 = f
+            sc5, st5, cams5 = build(5)
+            g5 = golden("headline_config4_s5.json")
+            check("config4_million_tri subdiv 5",
+                  Renderer(sc5, st5, device=dev), st5, cams5[0],
+                  lambda f: (sha(f) == g5["sha256"],
+                             "docs/golden/headline_config4_s5.json"))
+            rs = Renderer(sc, st, mesh=make_render_mesh([dev] * 8))
+            check("config4_million_tri in 8 row slabs", rs, st, cam,
+                  lambda f: (np.array_equal(f, f8) and sha(f) == g["sha256"],
+                             "the single device's frame and docs/golden/"
+                             "headline_config4.json"))
+            del rs
+    return dict(total)
+
+
+def auto_rules_phase(dev, card: str, head8) -> dict:
+    """Phase 22: the A/B table, what the decision rule gives on it beside
+    the constants ``renderer.py`` holds, then ``auto_route_gates``."""
+    from ash_renderer_tpu_torch.renderer import (CUDA_AUTO_FUSED_TRIS,
+                                                 CUDA_SURFACE_SHADE)
+
+    with Phase("22 the auto rules"):
+        say(card)
+        rows = auto_rule_ab(dev, card)
+        threshold, shade = ab_decision(rows)
+        agree = (threshold, shade) == (CUDA_AUTO_FUSED_TRIS,
+                                       CUDA_SURFACE_SHADE)
+        say(f"[{card}] decision rule on this table: fused from {threshold} "
+            f"triangles, textured shade {shade!r}; renderer.py holds "
+            f"{CUDA_AUTO_FUSED_TRIS} and {CUDA_SURFACE_SHADE!r}: "
+            + ("the same" if agree else "NOT the same (PERF.md §6 names "
+               "the run that set them)"))
+        return auto_route_gates(dev, card, head8)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="On-card smoke run of the "
+                                 "PyTorch/CUDA port.")
+    ap.add_argument("--auto-rules", action="store_true",
+                    help="run phases 1, 2 and 22 alone (the auto rules' A/B "
+                    "table and routes); prints no kernels or ok line")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
 
@@ -2303,13 +2756,23 @@ def main() -> int:
 
     from ash_renderer_tpu_torch.benchmarks import (config3_blinn_phong,
                                                    config4_million_tri)
+
+    if args.auto_rules:
+        scene8, st8, cams8 = config4_million_tri(8)
+        auto_rules_phase(dev, card, (scene8, st8, cams8[0]))
+        say(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2 and "
+            "22 alone)")
+        return 0
     from ash_renderer_tpu_torch.camera import orbit_path
     from ash_renderer_tpu_torch.renderer import Renderer
 
     errs: dict = {}
     with Phase("3 kernels vs plain (subdiv 5)"):
         scene5, st5, cams5 = config4_million_tri(5)
-        r5 = Renderer(scene5, st5, device=dev)
+        # "off" named: phase 4's subdiv-5 frame is K3's counted run ("auto"
+        # takes K3F on the card)
+        r5 = Renderer(scene5, dataclasses.replace(
+            st5, fused_surface_shade="off"), device=dev)
         compare_kernels(r5, cams5[0], "static", errs)
         compare_flyby(r5, "fly-by", errs)
         compare_k2_edges(dev, errs)
@@ -2327,12 +2790,14 @@ def main() -> int:
         torch.cuda.synchronize()
         say(f"subdiv-8 scene set-up (mesh, meshlets, upload): "
             f"{time.perf_counter() - t0:.1f} s")
-        _build.launches.clear()
-        f5 = r5.read_frame(r5.render_frame(cams5[0])[0])
+        f5, counts5, _, _ = run_counted(lambda: r5.read_frame(
+            r5.render_frame(cams5[0])[0]))
         g5 = golden("headline_config4_s5.json")
         require(sha(f5) == g5["sha256"],
                 f"subdiv-5 frame sha256 {sha(f5)} != golden {g5['sha256']}")
-        say(f"subdiv-5 frame {f5.shape[1]}x{f5.shape[0]}: golden sha256 EXACT")
+        say(f"subdiv-5 frame {f5.shape[1]}x{f5.shape[0]} (off): golden sha256 "
+            "EXACT")
+        _build.launches.clear()
         f8, aux8 = r8.render_frame(cams8[0])
         f8 = r8.read_frame(f8)
         g8 = golden("headline_config4.json")
@@ -2349,12 +2814,17 @@ def main() -> int:
         require((fs == f8).all(), "static -> moved -> static: last frame differs")
         say("static -> moved -> static: final frame byte-equal to the first")
         torch.cuda.synchronize()
-        counts = dict(_build.launches)
+        counts8 = dict(_build.launches)
+        counts = {k: counts5.get(k, 0) + counts8.get(k, 0)
+                  for k in {**counts5, **counts8}}
 
     with Phase("5 launch counts"):
         say(json.dumps(counts, sort_keys=True))
-        for k in ("K1_setup", "K2_run_bounds", "K3_raster"):
-            require(counts.get(k, 0) > 0, f"{k} was not launched in phase 4")
+        # the subdiv-5 frame on "off" (K3), the headline's on the route
+        # "auto" takes on the card
+        say("phase 4 routes: subdiv 5 " + require_route(
+            "phase 4 subdiv 5", counts5, r5) + ", subdiv 8 "
+            + require_route("phase 4 subdiv 8", counts8, r8))
 
     with Phase("6 timings (subdiv 8)"):
         static = [cams8[0]] * N_FRAMES
@@ -2441,9 +2911,10 @@ def main() -> int:
         turns(card, "config3 static uncached", [("auto", r3u), ("off", r3u_off)],
               [cams3[0]] * N_FRAMES)
         del r3u, r3u_off, r8on
-        r8u = Renderer(scene8, dataclasses.replace(st8, **nocache), device=dev)
+        r8u = Renderer(scene8, dataclasses.replace(
+            st8, fused_surface_shade="off", **nocache), device=dev)
         r8u_on = Renderer(scene8, dataclasses.replace(on, **nocache), device=dev)
-        turns(card, "config4 subdiv 8 static uncached", [("auto", r8u), ("on", r8u_on)],
+        turns(card, "config4 subdiv 8 static uncached", [("off", r8u), ("on", r8u_on)],
               [cams8[0]] * N_FRAMES)
         stage_ms(r8u_on, cams8[0])  # warm-up
         say(f"[{card}] stage ms (subdiv 8 on, static, uncached): " + ", ".join(
@@ -2466,18 +2937,19 @@ def main() -> int:
     from ash_renderer_tpu_torch.benchmarks import (GOLDEN_SCENES, GOLDEN_SHA,
                                                    config2_multi_mesh)
     from ash_renderer_tpu_torch.camera import Camera
+    from ash_renderer_tpu_torch.config import RendererSettings
 
     with Phase("12 classic frames"):
         _build.launches.clear()
         golden_rs = {}
+        classic = dict(pipeline="classic")
         for name, build in GOLDEN_SCENES.items():
             scene_g, st_g = build()
-            rg = golden_rs[name] = Renderer(scene_g, st_g, device=dev)
-            require(rg.settings.pipeline == "classic",
-                    f"{name}: auto routes to {rg.settings.pipeline}")
+            rg = golden_rs[name] = Renderer(
+                scene_g, dataclasses.replace(st_g, **classic), device=dev)
             fg = rg.read_frame(rg.render_frame(Camera())[0])
             require(sha(fg) == GOLDEN_SHA[name], f"{name}: frame != golden")
-            say(f"{name} {fg.shape[1]}x{fg.shape[0]} (auto -> classic): "
+            say(f"{name} {fg.shape[1]}x{fg.shape[0]} (classic): "
                 "golden sha256 EXACT")
         for label, r, cam, g in (("subdiv-5", r5, cams5[0], g5),
                                  ("subdiv-8", r8, cams8[0], g8)):
@@ -2494,14 +2966,14 @@ def main() -> int:
             say(f"classic {label} frame (meshlets, K5 + K4, "
                 f"{int(aux['pairs_total'])} pairs): golden sha256 EXACT")
         scene2, st2, cams2 = config2_multi_mesh()
-        r2 = Renderer(scene2, st2, device=dev)
-        require(r2.settings.pipeline == "classic", "config2: auto is not classic")
+        r2 = Renderer(scene2, dataclasses.replace(st2, **classic), device=dev)
         f2 = r2.read_frame(r2.render_frame(cams2[0])[0])
-        r2cpu = Renderer(scene2, st2, device="cpu")
+        r2cpu = Renderer(scene2, dataclasses.replace(st2, **classic),
+                         device="cpu")
         f2cpu = r2cpu.read_frame(r2cpu.render_frame(cams2[0])[0])
         require((f2 == f2cpu).all(), "config2: card frame != CPU frame")
         require(int(f2[..., :3].max()) > 0, "config2: the frame is black")
-        say(f"config2 {f2.shape[1]}x{f2.shape[0]} (auto -> classic): card "
+        say(f"config2 {f2.shape[1]}x{f2.shape[0]} (classic): card "
             "frame byte-equal to the CPU frame (plain versions)")
         moved2 = orbit_path(N_FRAMES, radius=4.0, center=[0.0, 0.0, 4.0])[5]
         fm = r2.read_frame(r2.render_frame(moved2)[0])
@@ -2537,14 +3009,15 @@ def main() -> int:
                 "Renderer classic subdiv 8: pairs or clip candidates overflow")
         say_timing(card, timing_r, " (Renderer classic subdiv 8)")
 
-        rref = Renderer(reference_two_triangle_scene(), device=dev)
+        rref = Renderer(reference_two_triangle_scene(), RendererSettings(
+            **classic), device=dev)
         for label, r, cam in (("reference 800x600", rref, Camera()),
                               ("config2 800x600", r2, cams2[0])):
-            require(r.settings.pipeline == "classic", f"{label}: not classic")
             med, mean, worst = frames_ms(r, [cam] * N_FRAMES)
             say(f"[{card}] frame ms, {label} (classic): median {med:.3f}, mean "
                 f"{mean:.3f}, max {worst:.3f} ({N_FRAMES} frames)")
-            # the same scene on the fused route, for the auto rule's threshold
+            # the same scene on the fused route (phase 22 times both for
+            # the auto rule)
             rf = Renderer(r.scene, dataclasses.replace(
                 r.settings, pipeline="fused", front_coherence=False), device=dev)
             turns(card, f"{label} static", [("classic", r), ("fused", rf)],
@@ -2578,9 +3051,11 @@ def main() -> int:
 
         debug_checks(dev, card, (
             ("reference 800x600 (classic)",
-             Renderer(reference_two_triangle_scene(), device=dev), Camera()),
+             Renderer(reference_two_triangle_scene(), RendererSettings(
+                 **classic), device=dev), Camera()),
             ("config3 800x600 (fused, K3F)", r3, cams3[0]),
-            ("config4 subdiv 5 (fused, textured, K3)", r5, cams5[0])),
+            ("config4 subdiv 5 (fused, textured, "
+             f"{r5.settings.fused_surface_shade})", r5, cams5[0])),
             (("staged", aux8), ("fallback", aux_fb8)), fb8, cams8[0])
         del fb8
         say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -2599,11 +3074,13 @@ def main() -> int:
                                   (scene8, st8, cams8[0], g8))
 
     with Phase("20 examples and host helpers on the card"):
-        examples_checks(dev, card, (scene5, st5, cams5[0], g5),
+        examples_checks(dev, card, (scene5, st5, cams5[0], g5), r8,
                         GOLDEN_SHA["reference"])
 
     with Phase("21 bench_torch on the card"):
         bench_checks(card)
+
+    auto_rules_phase(dev, card, (scene8, st8, cams8[0]))
 
     meta = {
         "K1": ("K1_setup", "ash_renderer_tpu_torch/csrc/setup.cu",
@@ -2623,6 +3100,7 @@ def main() -> int:
     }
     kernels = []
     for k, (name, src, rep, n) in meta.items():
+        require(n.get(name, 0) > 0, f"{name}: no launch in its counted run")
         kt, pt, lt, (bt, by) = timing[k]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,

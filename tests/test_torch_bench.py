@@ -5,6 +5,7 @@ config5's oracle branch without the reference's texture asset), the
 fly-by path against ``bench.py``'s, whole runs in a process where jax is
 blocked and in this one, and the refusal to run without a card."""
 
+import dataclasses
 import importlib.util
 import json
 import os
@@ -422,3 +423,28 @@ def test_warmup_on_a_card_builds_the_routes_libraries(pipeline, sources,
               else [("build", (s,)) for s in sources])
     assert calls == builds + [("load", s) for s in sources]
     assert set(sources) <= set(_build.KERNELS)
+
+
+@pytest.mark.parametrize("config", ["reference", "config2_multi_mesh"])
+def test_warmup_builds_the_cuda_auto_routes_libraries(config, monkeypatch):
+    """A small scene's settings resolved by the CUDA branch of the auto
+    rule (``renderer.auto_route``, called here without a card): warm-up
+    builds and loads the sources of the route it resolved to, the fused
+    route's three or classic's K4."""
+    from ash_renderer_tpu_torch.renderer import auto_route
+
+    scene, settings, _ = benchmarks.ALL_CONFIGS[config]()
+    settings = dataclasses.replace(settings, width=64, height=48)
+    st = auto_route(settings, torch.device("cuda", 0),
+                    sum(m.num_triangles for m in scene.meshes))
+    r = Renderer(scene, st, device="cpu")
+    assert r.settings == st
+    r.device = torch.device("cuda", 0)
+    calls = []
+    monkeypatch.setattr(_build, "build", lambda s: calls.append(("build", s)))
+    monkeypatch.setattr(_build, "load", lambda s: calls.append(("load", s)))
+    r.warmup(execute=False)
+    sources = (("setup.cu", "bincount.cu", "raster.cu")
+               if st.pipeline == "fused" else ("raster_classic.cu",))
+    assert calls == [("build", sources)] + [("load", s) for s in sources]
+    assert st.fused_surface_shade == "on"
