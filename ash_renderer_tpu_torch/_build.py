@@ -68,11 +68,12 @@ KERNELS = {
     },
     "raster.cu": {
         # rmeta, tbl_sorted, tbl_ext, comb, vis_d, vis_t, planes, n_tiles,
-        # grid_w, min_c, ss, row0 (the window's first tile row), stream
-        "ash_rasterize_distribute": [_P] * 7 + [_I] * 5 + [_P],
-        # ... as above, then consts, n_consts, m_n, t_n, has_m, has_a,
-        # has_l, stream
-        "ash_rasterize_shade": [_P] * 7 + [_I] * 5 + [_P] + [_I] * 6 + [_P],
+        # grid_w, min_c, ss, row0 (the window's first tile row), tile_h,
+        # stream
+        "ash_rasterize_distribute": [_P] * 7 + [_I] * 6 + [_P],
+        # ... as above up to tile_h, then consts, n_consts, m_n, t_n,
+        # has_m, has_a, has_l, stream
+        "ash_rasterize_shade": [_P] * 7 + [_I] * 6 + [_P] + [_I] * 6 + [_P],
     },
     "raster_classic.cu": {
         # rec_i, rec_f, rec_box, tile_start, tile_count, vis_d, vis_t,

@@ -71,7 +71,8 @@ class RendererSettings:
     fused_surface_shade: str = "auto"
     # JAX package only: the raster kernel's range streaming form.
     kernel_range_loop: bool = False
-    # Raster-kernel tile height (the port's kernel takes 8 only).
+    # Raster-kernel tile height of the fused route: 8 or 4 (the raster
+    # kernel takes either; any other height raises at construction).
     fused_tile_h: int = 8
     # JAX package only: live-row band gating of the texture quad gather.
     shade_row_band: bool = True

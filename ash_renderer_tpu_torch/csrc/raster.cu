@@ -1,4 +1,5 @@
-// K3: raster + distribute (phases V, D and E) for 8 x 128 tiles, and K3F,
+// K3: raster + distribute (phases V, D and E) for tile_h x 128 tiles
+// (tile_h 8, the default, or 4, as the reference's kernel takes), and K3F,
 // the same kernel with phase F.  Replaces the Pallas kernel
 // ash_renderer_tpu/ops/fused_kernel.py:_kernel (the pallas_call at :1087,
 // via rasterize_distribute; shade_mode=None for K3, set for K3F, whose
@@ -21,7 +22,10 @@
 // window rule; fused_kernel.slot_pixel_boxes is the same definition in
 // torch).  Each warp owns a footprint of FOOT_H rows x 8 columns (PX pixels
 // per lane, rows 4 apart), walks each chunk's masks with __ballot_sync and
-// evaluates only the records that touch it.  The brute-force design
+// evaluates only the records that touch it.  Both tile heights run 512
+// threads in 16 warps with one footprint row group, so the mask has one bit
+// per warp in the same layout: 8 rows take PX = 2 (8 x 8 footprints), 4
+// rows PX = 1 (4 x 8).  The brute-force design
 // evaluated every streamed slot at all 1024 pixels (3.95e8 slot-pixel
 // evaluations for 974,034 covered pixels on the static 1.31M-triangle
 // headline frame); the boxes there hold 2.54e6 pixels, and the cull leaves
@@ -68,20 +72,29 @@ namespace {
 
 using namespace ash;
 
-constexpr int TILE_H = 8;
-constexpr int N_PIX = TILE_H * TILE_W;
-// Pixels per thread: 2 (512 threads, 8 x 8 footprints) measured ahead of 1
-// (1024 threads, 4 x 8) and of 4 (256 threads, 8 x 16 footprints; PERF.md,
-// experiments/torch_k3_variants.py).
-constexpr int PX = 2;
-static_assert(PX == 1 || PX == 2, "a lane holds the pixels of rows r, r+4");
-constexpr int THREADS = N_PIX / PX;
-constexpr int FOOT_W = 8;       // warp footprint: 8 columns (lane % 8) ...
-constexpr int FOOT_H = 4 * PX;  // ... by 4*PX rows (lane / 8, + 4 per pixel)
+// Threads per block at either tile height.  At 8 rows, 2 pixels a thread
+// (512 threads, 8 x 8 footprints) measured ahead of 1 (1024 threads, 4 x 8)
+// and of 4 (256 threads, 8 x 16 footprints; PERF.md,
+// experiments/torch_k3_variants.py); 4 rows take 1 pixel a thread.
+constexpr int THREADS = 512;
+constexpr int MIN_BLOCKS = 2;  // blocks an SM holds: 64 registers a thread
+constexpr int FOOT_W = 8;      // columns of a warp's footprint
 constexpr int COL_GROUPS = TILE_W / FOOT_W;
-constexpr int ROW_GROUPS = TILE_H / FOOT_H;
-static_assert(COL_GROUPS * ROW_GROUPS == THREADS / 32, "one bit per warp");
 static_assert(FINE_W % FOOT_W == 0, "a footprint lies in one fine window");
+
+// The shape of a tile of TILE_H rows
+template <int TILE_H>
+struct Tile {
+  static constexpr int N_PIX = TILE_H * TILE_W;
+  static constexpr int PX = N_PIX / THREADS;  // pixels a thread
+  static_assert(PX == 1 || PX == 2, "a lane holds the pixels of rows r, r+4");
+  static_assert(PX * THREADS == N_PIX, "every pixel has a thread");
+  // a warp's footprint: FOOT_W columns (lane % 8) by 4 * PX rows (lane / 8,
+  // + 4 a pixel)
+  static constexpr int FOOT_H = 4 * PX;
+  static constexpr int ROW_GROUPS = TILE_H / FOOT_H;
+  static_assert(COL_GROUPS * ROW_GROUPS == THREADS / 32, "one bit per warp");
+};
 constexpr int N_RANGES = 7;
 constexpr int EXT_RANGE = 5;
 constexpr int FINE_RANGE = 6;
@@ -100,6 +113,7 @@ constexpr int F_P = 0, F_DIFF = 4, F_SPEC = 7, F_LIT = 8, F_TAP = 9,
 // staged records, one field group per array so a warp reads a record with
 // four broadcast 16-byte loads; after phase V the same memory holds the
 // tile's winners
+template <int N_PIX>
 union Smem {
   struct {
     int4 e[CHUNK];   // E0, E1, E2 at the tile's first sample; zq01
@@ -147,9 +161,10 @@ __device__ ShadeLayout shade_layout(const ShadeMode& sm) {
   return L;
 }
 
-// Phase F: writes planes rows 0-16 of one pixel (out points at row 0).
-// a: the 12 interpolated attributes; durx..dvry: the raw uv derivatives;
-// mat_row: the winner's material; sc: the shade constants.
+// Phase F: writes planes rows 0-16 of one pixel (out points at row 0; rows
+// are N_PIX apart).  a: the 12 interpolated attributes; durx..dvry: the raw
+// uv derivatives; mat_row: the winner's material; sc: the shade constants.
+template <int N_PIX>
 __device__ __forceinline__ void phase_f(int* out, const float (&a)[12],
                                         float durx, float dvrx, float dury,
                                         float dvry, int mat_row,
@@ -250,8 +265,9 @@ __device__ __forceinline__ void phase_f(int* out, const float (&a)[12],
 }
 
 // Phases D, E (and F with SHADE) for one pixel whose sample is (sx, sy) and
-// whose winner is best_t; out points at the pixel's planes row 0.
-template <bool SHADE>
+// whose winner is best_t; out points at the pixel's planes row 0 (rows are
+// N_PIX apart).
+template <int N_PIX, bool SHADE>
 __device__ __forceinline__ void distribute(int* out, int best_t, int sx,
                                            int sy, int min_c, int ss,
                                            const int* __restrict__ comb,
@@ -321,7 +337,7 @@ __device__ __forceinline__ void distribute(int* out, int best_t, int sx,
   raws(gx0, gx1, gx2, durx, dvrx);
   raws(gy0, gy1, gy2, dury, dvry);
   if constexpr (SHADE) {
-    phase_f(out, a, durx, dvrx, dury, dvry, o[9], sc, smode);
+    phase_f<N_PIX>(out, a, durx, dvrx, dury, dvry, o[9], sc, smode);
   } else {
     out[12 * N_PIX] = bits(durx);
     out[13 * N_PIX] = bits(dvrx);
@@ -334,14 +350,16 @@ __device__ __forceinline__ void distribute(int* out, int best_t, int sx,
   for (int k = VIS_ROW + 1; k < OUT_COLS; ++k) out[k * N_PIX] = 0;
 }
 
-template <bool SHADE>
-__global__ void __launch_bounds__(THREADS, N_PIX / THREADS)
+template <int TILE_H, bool SHADE>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 raster_kernel(const int* __restrict__ rmeta, const int* __restrict__ tbl,
               const int* __restrict__ ext, const int* __restrict__ comb,
               int* __restrict__ vis_d, int* __restrict__ vis_t,
               int* __restrict__ planes, int grid_w, int min_c, int ss,
               int row0, ShadeMode smode) {
-  __shared__ Smem S;
+  using T = Tile<TILE_H>;
+  constexpr int N_PIX = T::N_PIX, PX = T::PX, FOOT_H = T::FOOT_H;
+  __shared__ Smem<N_PIX> S;
   __shared__ int range_lo[N_RANGES + 1], range_start[N_RANGES];
   __shared__ int sc[SHADE ? MAX_CONSTS : 1];
   const int t = blockIdx.x;
@@ -424,7 +442,7 @@ raster_kernel(const int* __restrict__ rmeta, const int* __restrict__ tbl,
       if (c0 <= c1 && r0 <= r1) {
         const unsigned cols = (2u << (c1 / FOOT_W)) - (1u << (c0 / FOOT_W));
 #pragma unroll
-        for (int g = 0; g < ROW_GROUPS; ++g)
+        for (int g = 0; g < T::ROW_GROUPS; ++g)
           if (r0 / FOOT_H <= g && g <= r1 / FOOT_H) mask |= cols << (g * COL_GROUPS);
       }
       S.rec.mask[p] = mask;
@@ -480,40 +498,61 @@ raster_kernel(const int* __restrict__ rmeta, const int* __restrict__ tbl,
     const size_t vi = ((size_t)py0 + row) * wp + px0 + col;
     vis_d[vi] = S.win.d[pix];
     vis_t[vi] = bt;
-    distribute<SHADE>(planes + (size_t)t * OUT_COLS * N_PIX + pix, bt,
+    distribute<N_PIX, SHADE>(planes + (size_t)t * OUT_COLS * N_PIX + pix, bt,
                       (px0 + col) * ss + half, (screen_y0 + row) * ss + half,
                       min_c, ss, comb, sc, smode);
   }
 }
 
+// K3 (SHADE false) or K3F on the tile height the caller gives: 8 or 4
+template <bool SHADE>
+int launch_raster(const int* rmeta, const int* tbl, const int* ext,
+                  const int* comb, int* vis_d, int* vis_t, int* planes,
+                  int n_tiles, int grid_w, int min_c, int ss, int row0,
+                  int tile_h, ShadeMode smode, void* stream) {
+  if (tile_h != 8 && tile_h != 4) return (int)cudaErrorInvalidValue;
+  if (n_tiles > 0) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (tile_h == 8)
+      raster_kernel<8, SHADE><<<n_tiles, THREADS, 0, s>>>(
+          rmeta, tbl, ext, comb, vis_d, vis_t, planes, grid_w, min_c, ss,
+          row0, smode);
+    else
+      raster_kernel<4, SHADE><<<n_tiles, THREADS, 0, s>>>(
+          rmeta, tbl, ext, comb, vis_d, vis_t, planes, grid_w, min_c, ss,
+          row0, smode);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// K3; 1 = invalid argument for a tile height other than 8 or 4
 extern "C" int ash_rasterize_distribute(const int* rmeta, const int* tbl,
                                         const int* ext, const int* comb,
                                         int* vis_d, int* vis_t, int* planes,
                                         int n_tiles, int grid_w, int min_c,
-                                        int ss, int row0, void* stream) {
-  if (n_tiles > 0)
-    raster_kernel<false><<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
-        rmeta, tbl, ext, comb, vis_d, vis_t, planes, grid_w, min_c, ss, row0,
-        ShadeMode{nullptr, 0, 0, 0, 0, 0, 0});
-  return (int)cudaGetLastError();
+                                        int ss, int row0, int tile_h,
+                                        void* stream) {
+  return launch_raster<false>(rmeta, tbl, ext, comb, vis_d, vis_t, planes,
+                              n_tiles, grid_w, min_c, ss, row0, tile_h,
+                              ShadeMode{nullptr, 0, 0, 0, 0, 0, 0}, stream);
 }
 
 // K3F: as above, with phase F from the shade constants (fused_kernel.py:
-// pack_shade_consts); 1 = invalid argument if they exceed the kernel's caps
+// pack_shade_consts); 1 = invalid argument also if they exceed the kernel's
+// caps
 extern "C" int ash_rasterize_shade(const int* rmeta, const int* tbl,
                                    const int* ext, const int* comb,
                                    int* vis_d, int* vis_t, int* planes,
                                    int n_tiles, int grid_w, int min_c, int ss,
-                                   int row0, const int* consts, int n_consts, int m_n,
-                                   int t_n, int has_m, int has_a, int has_l,
-                                   void* stream) {
+                                   int row0, int tile_h, const int* consts,
+                                   int n_consts, int m_n, int t_n, int has_m,
+                                   int has_a, int has_l, void* stream) {
   if (n_consts > MAX_CONSTS || m_n > 16 || t_n > 2)
     return (int)cudaErrorInvalidValue;
-  if (n_tiles > 0)
-    raster_kernel<true><<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
-        rmeta, tbl, ext, comb, vis_d, vis_t, planes, grid_w, min_c, ss, row0,
-        ShadeMode{consts, n_consts, m_n, t_n, has_m, has_a, has_l});
-  return (int)cudaGetLastError();
+  return launch_raster<true>(
+      rmeta, tbl, ext, comb, vis_d, vis_t, planes, n_tiles, grid_w, min_c, ss,
+      row0, tile_h, ShadeMode{consts, n_consts, m_n, t_n, has_m, has_a, has_l},
+      stream);
 }

@@ -4,11 +4,14 @@ variant K3F.
 ``rasterize_distribute`` launches ``csrc/raster.cu`` on CUDA tensors and
 runs ``rasterize_distribute_plain`` (the same function in torch ops) on CPU
 tensors.  It replaces the Pallas kernel ``ash_renderer_tpu/ops/
-fused_kernel.py:_kernel`` (via ``rasterize_distribute``) with 8x128 tiles:
-with ``shade_mode=None`` (K3) and with a shade mode set (K3F, which runs the
-surface half of shading, ``_phase_f``, inside the kernel).
+fused_kernel.py:_kernel`` (via ``rasterize_distribute``) with tiles of
+``cfg.tile_h`` x 128, ``tile_h`` 8 (the default) or 4 (``TILE_HEIGHTS``, as
+the reference's kernel takes): with ``shade_mode=None`` (K3) and with a
+shade mode set (K3F, which runs the surface half of shading, ``_phase_f``,
+inside the kernel).  The launch counts at 4 rows are kept apart
+(``kernel_name``).
 
-One CUDA block per 8x128 tile.  The block streams the tile's 7 ranges from
+One CUDA block per tile.  The block streams the tile's 7 ranges from
 ``rmeta`` (own, above, left, diag, wide and own-fine read ``tbl_sorted``;
 the wide-pair range reads ``tbl_ext``) as one sequence, staging a chunk of
 records in shared memory, each with its pixel box (``slot_pixel_boxes``:
@@ -25,15 +28,16 @@ byte-plane matmuls; phase E is ``shade.interp_fields_stacked`` op for op.
 What bounds it on the card: device memory (the 199 MB of planes written
 on the static 1.31M-triangle headline frame, the winners' rows and the
 streamed records).  Before the cull, phase V evaluated every streamed
-slot at all 1024 pixels of its tile (3.95 x 10^8 slot-pixel evaluations
-for 974,034 covered pixels there) and integer throughput bound it; the
+slot at all 1024 pixels of its 8-row tile (3.95 x 10^8 slot-pixel
+evaluations for 974,034 covered pixels there) and integer throughput bound
+it; the
 boxes leave only the pixels ``slot_pixel_boxes`` counts, which is also the
 operation count of the kernel's bound in ``chip_smoke.py``.  Phase F adds
 ~160 float ops per pixel.
 
-Planes, (n_tiles, 24, 1024) int32 per tile pixel (row*128 + col).  Phase E
-layout (``shade_mode=None``): rows 0-11 interpolated attributes, 12-15 raw
-uv screen derivatives, 16 material.  Phase F layout (``F_*`` below): the
+Planes, (n_tiles, 24, tile_h * 128) int32 per tile pixel (row*128 +
+col).  Phase E layout (``shade_mode=None``): rows 0-11 interpolated
+attributes, 12-15 raw uv screen derivatives, 16 material.  Phase F layout (``F_*`` below): the
 material-modulated colour, diffuse, specular, lit mask and the bilinear tap
 address.  Both: 17 winner ids (-1 background), 18-23 zero.  Background
 pixels carry the NaN attributes the spec's zero fields give; consumers mask
@@ -66,9 +70,10 @@ N_RANGES = 7  # own, above, left, diag, wide, wide-pairs(ext), own-fine
 EXT_RANGE = 5
 FINE_RANGE = 6
 RMETA_COLS = 2  # rs, re per (tile, range)
-TILE_H = 8
+TILE_H = 8  # the default tile height; the kernel takes cfg.tile_h
+TILE_HEIGHTS = (4, 8)
 TILE_W = 128
-N_PIX = TILE_H * TILE_W
+N_PIX = TILE_H * TILE_W  # pixels of a default tile
 COMB_USED = 48  # comb columns phase D gathers
 OUT_COLS = 24
 VIS_ROW = 17  # planes row carrying the winner ids
@@ -87,6 +92,20 @@ F_P, F_DIFF, F_SPEC, F_LIT, F_TAP, F_FU, F_FV, F_TEXMASK = (
 MAX_SHADE_M = 16  # pipeline.shade_mode_for's table caps
 MAX_SHADE_T = 2
 PLAIN_CHUNK = 2048  # (tile, slot) pairs per step of the plain version
+
+
+def kernel_name(tile_h: int, shade: bool) -> str:
+    """The launch count the kernel adds to: ``KERNEL`` (K3) or ``KERNEL_F``
+    (K3F) on the default 8-row tiles, with ``_t4`` on 4-row ones."""
+    name = KERNEL_F if shade else KERNEL
+    return name if tile_h == TILE_H else f"{name}_t{tile_h}"
+
+
+def check_tiles(cfg) -> None:
+    """Raise ValueError unless ``cfg``'s tiles are 4 or 8 rows by 128."""
+    if cfg.tile_h not in TILE_HEIGHTS or cfg.tile_w != TILE_W:
+        raise ValueError(f"rasterize_distribute: tiles are {cfg.tile_h}x"
+                         f"{cfg.tile_w}, not 4x128 or 8x128")
 
 
 def build_range_meta(bounds, n_tiles: int, gw: int, pair_starts, wide_start):
@@ -153,14 +172,14 @@ def rasterize_distribute(rmeta, tbl_sorted, tbl_ext, comb, cfg,
     of the tile-row window [tile_row0, tile_row0 + tile_rows) (the whole
     grid by default), and with ``shade_mode`` set
     (``pipeline.shade_mode_for``) the surface half of shading from
-    ``consts`` (``shade.pack_shade_consts``).  Returns (vis_d, vis_t) and
-    planes (n_tiles, 24, 1024) int32; the vis planes are cropped to
+    ``consts`` (``shade.pack_shade_consts``), on tiles of ``cfg.tile_h``
+    (4 or 8) x 128.  Returns (vis_d, vis_t) and planes (n_tiles, 24,
+    tile_h * 128) int32; the vis planes are cropped to
     (height, width) for the whole grid and to the width only for a window
     given by ``tile_rows``.  CPU tensors take the plain version; CUDA
     tensors launch the kernel (K3, or K3F with a shade mode)."""
     dev = rmeta.device
-    if cfg.tile_h != TILE_H or cfg.tile_w != TILE_W:
-        raise ValueError("rasterize_distribute: tiles must be 8x128")
+    check_tiles(cfg)
     if dev.type == "cpu":
         return rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb,
                                           cfg, shade_mode, consts, tile_row0,
@@ -176,17 +195,18 @@ def rasterize_distribute(rmeta, tbl_sorted, tbl_ext, comb, cfg,
     _check("tbl_sorted", tbl_sorted, dev, 2, TBL_COLS)
     _check("tbl_ext", tbl_ext, dev, 2, TBL_COLS)
     _check("comb", comb, dev, 2, TBL_COLS)
-    hp, wp = tile_rows * TILE_H, cfg.grid_w * TILE_W
+    hp, wp = tile_rows * cfg.tile_h, cfg.grid_w * TILE_W
     vis_d = torch.empty((hp, wp), dtype=torch.int32, device=dev)
     vis_t = torch.empty((hp, wp), dtype=torch.int32, device=dev)
-    planes = torch.empty((n_tiles, OUT_COLS, N_PIX), dtype=torch.int32,
-                         device=dev)
+    planes = torch.empty((n_tiles, OUT_COLS, cfg.tile_h * TILE_W),
+                         dtype=torch.int32, device=dev)
     args = (rmeta.data_ptr(), tbl_sorted.data_ptr(), tbl_ext.data_ptr(),
             comb.data_ptr(), vis_d.data_ptr(), vis_t.data_ptr(),
             planes.data_ptr(), n_tiles, cfg.grid_w, cfg.min_coord,
-            cfg.subpixel_scale, tile_row0)
+            cfg.subpixel_scale, tile_row0, cfg.tile_h)
     if shade_mode is None:
-        _build.launch(KERNEL, "ash_rasterize_distribute", dev, *args)
+        _build.launch(kernel_name(cfg.tile_h, False),
+                      "ash_rasterize_distribute", dev, *args)
     else:
         m_n, t_n, has_m, has_a, has_l = shade_mode
         if m_n > MAX_SHADE_M or t_n > MAX_SHADE_T:
@@ -197,7 +217,8 @@ def rasterize_distribute(rmeta, tbl_sorted, tbl_ext, comb, cfg,
             raise ValueError("rasterize_distribute: consts do not fit the "
                              f"shade mode {shade_mode}")
         _build.launch(
-            KERNEL_F, "ash_rasterize_shade", dev, *args, consts.data_ptr(),
+            kernel_name(cfg.tile_h, True), "ash_rasterize_shade", dev, *args,
+            consts.data_ptr(),
             consts.shape[0], m_n, t_n, int(has_m), int(has_a), int(has_l),
         )
     return (*crop_window(vis_d, vis_t, cfg, whole), planes)
@@ -243,7 +264,7 @@ def slot_pixel_boxes(rmeta, tbl_sorted, tbl_ext, cfg, tile_row0: int = 0):
     py_lo = (y.amin(1) - half + ss - 1).div(ss, rounding_mode="floor")
     py_hi = (y.amax(1) - half).div(ss, rounding_mode="floor")
     x0 = (tile % cfg.grid_w).to(torch.int32) * TILE_W
-    y0 = (tile // cfg.grid_w + tile_row0).to(torch.int32) * TILE_H
+    y0 = (tile // cfg.grid_w + tile_row0).to(torch.int32) * cfg.tile_h
     col0 = torch.clamp(px_lo - x0, min=0)
     col1 = torch.clamp(px_hi - x0, max=TILE_W - 1)
     fine = rng == FINE_RANGE
@@ -251,7 +272,7 @@ def slot_pixel_boxes(rmeta, tbl_sorted, tbl_ext, cfg, tile_row0: int = 0):
     col0 = torch.where(fine, torch.maximum(col0, w0), col0)
     col1 = torch.where(fine, torch.minimum(col1, w0 + FINE_W - 1), col1)
     box = torch.stack([col0, col1, torch.clamp(py_lo - y0, min=0),
-                       torch.clamp(py_hi - y0, max=TILE_H - 1)], dim=1)
+                       torch.clamp(py_hi - y0, max=cfg.tile_h - 1)], dim=1)
     return tile, rng, box.to(torch.int32)
 
 
@@ -266,26 +287,29 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
                                shade_mode=None, consts=None,
                                tile_row0: int = 0, tile_rows=None):
     """rasterize_distribute in torch ops (any device): every streamed
-    (tile, slot) pair is evaluated at the tile's 1024 pixels in chunks, and
+    (tile, slot) pair is evaluated at the tile's tile_h * 128 pixels in
+    chunks, and
     the per-pixel minimum of (d16, -id) is a scatter-min of a packed 64-bit
     key; with ``shade_mode`` set, rows 0-16 take the phase F layout
     (``phase_f_plain``).  The window as in ``rasterize_distribute``."""
     dev = rmeta.device
+    check_tiles(cfg)
     i32, i64 = torch.int32, torch.int64
     whole = tile_rows is None
     tile_rows = window_rows(cfg, tile_row0, tile_rows)[0]
     n_tiles = tile_rows * cfg.grid_w
     if rmeta.shape[0] != n_tiles * N_RANGES * RMETA_COLS:
         raise ValueError("rasterize_distribute: rmeta does not fit the grid")
-    gw = cfg.grid_w
+    gw, th = cfg.grid_w, cfg.tile_h
+    n_pix = th * TILE_W
     ss = cfg.subpixel_scale
     half = ss // 2
     min_c = cfg.min_coord
     tile, rng, pos = _range_pairs(rmeta, n_tiles)
-    pix = torch.arange(N_PIX, device=dev)
+    pix = torch.arange(n_pix, device=dev)
     col, row = (pix % TILE_W).to(i32), (pix // TILE_W).to(i32)
     bg_key = (sm.DEPTH_MAX << 32) | (0x7FFFFFFF - sm.BG_TRI)
-    best = torch.full((n_tiles * N_PIX,), bg_key, dtype=i64, device=dev)
+    best = torch.full((n_tiles * n_pix,), bg_key, dtype=i64, device=dev)
     rec_cols = torch.tensor([0, 1, 2, 3, 4, 5, ID_COL], device=dev)
 
     def unpack16(p):
@@ -307,7 +331,7 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
         ids = rec[:, 6:7]
         tx = (t_c % gw).to(i32)[:, None]
         ty = (t_c // gw + tile_row0).to(i32)[:, None]
-        sx, sy = sm.pixel_sample_coords(tx * TILE_W + col, ty * TILE_H + row, ss)
+        sx, sy = sm.pixel_sample_coords(tx * TILE_W + col, ty * th + row, ss)
         a0, b0, tl0 = sm.edge_coeffs(x1, y1, x2, y2)
         a1, b1, tl1 = sm.edge_coeffs(x2, y2, x0, y0)
         a2, b2, tl2 = sm.edge_coeffs(x0, y0, x1, y1)
@@ -324,7 +348,7 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
         cov = cov & ((r_c != FINE_RANGE)[:, None] | (col // FINE_W == win))
         d16 = sm.interp_depth16(e0, e1, e2, inv_area, zq0, zq1, zq2)
         key = (d16.to(i64) << 32) | (0x7FFFFFFF - ids).to(i64)
-        dst = (t_c[:, None] * N_PIX + pix).expand_as(key)
+        dst = (t_c[:, None] * n_pix + pix).expand_as(key)
         best.scatter_reduce_(0, dst[cov], key[cov], reduce="amin")
     vis_d = (best >> 32).to(i32)
     vis_t = (0x7FFFFFFF - (best & 0xFFFFFFFF)).to(i32)
@@ -335,11 +359,11 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
         won[:, None],
         comb[torch.clamp(vis_t, min=0).long(), :COMB_USED],
         torch.zeros((), dtype=i32, device=dev),
-    ).reshape(n_tiles, N_PIX, COMB_USED)
-    planes = torch.zeros((n_tiles, OUT_COLS, N_PIX), dtype=i32, device=dev)
+    ).reshape(n_tiles, n_pix, COMB_USED)
+    planes = torch.zeros((n_tiles, OUT_COLS, n_pix), dtype=i32, device=dev)
     tt = torch.arange(n_tiles, device=dev)[:, None]
     px = (tt % gw) * TILE_W + (pix % TILE_W)
-    py = (tt // gw + tile_row0) * TILE_H + pix // TILE_W
+    py = (tt // gw + tile_row0) * th + pix // TILE_W
     attr, duv, mat = phase_e(o, px.to(i32), py.to(i32), cfg)
     if shade_mode is None:
         planes[:, :VIS_ROW] = torch.cat(
@@ -350,11 +374,11 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
         )
     else:
         planes[:, :VIS_ROW] = phase_f_plain(attr, duv, mat, shade_mode, consts)
-    planes[:, VIS_ROW] = vis_t.reshape(n_tiles, N_PIX)
-    hp, wp = tile_rows * TILE_H, gw * TILE_W
+    planes[:, VIS_ROW] = vis_t.reshape(n_tiles, n_pix)
+    hp, wp = tile_rows * th, gw * TILE_W
 
     def to_image(v):
-        return (v.reshape(tile_rows, gw, TILE_H, TILE_W).permute(0, 2, 1, 3)
+        return (v.reshape(tile_rows, gw, th, TILE_W).permute(0, 2, 1, 3)
                 .reshape(hp, wp))
 
     return (*crop_window(to_image(vis_d), to_image(vis_t), cfg, whole),

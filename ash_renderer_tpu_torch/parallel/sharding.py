@@ -2,8 +2,9 @@
 one slab per entry of a device mesh (the counterpart of
 ``ash_renderer_tpu/parallel/sharding.py``).
 
-* Slab size: each slab owns ``rows_per = ceil(grid_h / n)`` tile rows from
-  ``tile_row0 = i * rows_per``.  Rows past the screen key nothing and
+* Slab size: each slab owns ``rows_per = ceil(grid_h / n)`` tile rows
+  (of ``cfg.tile_h`` pixel rows: 8 or 4 on the fused route, 16 on the
+  classic one) from ``tile_row0 = i * rows_per``.  Rows past the screen key nothing and
   render the background; the assembled frame is cropped to the height.
 * Geometry and triangle setup (K1) are replicated: each slab runs them
   whole on its own device.  Keys, run bounds (K2), the wide expansion and

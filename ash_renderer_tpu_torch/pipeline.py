@@ -284,10 +284,10 @@ def shade_mode_for(statics, materials, atlas, light):
 
 def _shade_from_planes(statics, planes, mode, consts, phase_f, atlas, light,
                        full_frame: bool = True):
-    """Shade the (n_tiles, 24, 1024) planes tile-flat, then lay the RGBA out
-    as the image of their n_tiles / grid_w tile rows, cropped to the width,
-    and to the height only for the ``full_frame`` (a slab's rows stay
-    whole).  ``mode`` and ``consts``: the scene's ``surface_mode`` and its
+    """Shade the (n_tiles, 24, tile_h * 128) planes tile-flat, then lay the
+    RGBA out as the image of their n_tiles / grid_w tile rows, cropped to
+    the width, and to the height only for the ``full_frame`` (a slab's rows
+    stay whole).  ``mode`` and ``consts``: the scene's ``surface_mode`` and its
     packed tables; ``phase_f``: whether the planes hold the phase F layout
     (the surface half is done) or phase E's (it is run here,
     ``shade.surface_prelight``).  ``atlas`` and ``light`` are None where

@@ -12,7 +12,7 @@ explicit torch device.
   ``draw_frame`` when the extent it is given no longer matches.
 
 ``settings.pipeline`` picks the frame pipeline: "fused" (meshlet packing,
-8x128 tiles, kernels K1-K3/K3F), "classic" (plain packing, 16x128 tiles,
+``fused_tile_h`` x 128 tiles, 8 rows by default or 4, kernels K1-K3/K3F), "classic" (plain packing, 16x128 tiles,
 kernel K4) or "auto"; ``settings.fused_surface_shade`` picks the fused
 raster's shading, K3F ("on") or K3 ("off").  ``auto_route`` resolves
 "auto" per device, and the resolved values are what ``Renderer.settings``
@@ -47,7 +47,7 @@ from .camera import Camera
 from .config import RendererSettings, derive_raster_config
 from .profiling import FrameStats
 from .scene import Scene
-from .ops import raster_visibility
+from .ops import fused_kernel, raster_visibility
 from .parallel import (make_render_mesh, render_frame_sharded,
                        render_frame_sharded_fused)
 from .oracle.raster_cpu import compose_mvp
@@ -196,8 +196,10 @@ class Renderer:
             raise ValueError(f"unknown pipeline {settings.pipeline!r}")
         settings = auto_route(settings, self.device,
                               sum(m.num_triangles for m in scene.meshes))
-        if settings.pipeline == "fused" and settings.fused_tile_h != 8:
-            raise ValueError("the port's raster kernel uses 8-row tiles")
+        if (settings.pipeline == "fused"
+                and settings.fused_tile_h not in fused_kernel.TILE_HEIGHTS):
+            raise ValueError(f"fused_tile_h={settings.fused_tile_h}: the "
+                             "raster kernel takes 4- or 8-row tiles")
         self.scene = scene
         self.settings = settings
         self.mesh = resolve_mesh(settings, self.device, self._mesh_arg)

@@ -10,7 +10,8 @@ lines and seconds; any failure raises and the exit code is non-zero):
 2. build the CUDA kernels and the native meshlet builder from
    ``ash_renderer_tpu_torch/csrc`` (one compiler process per source, all
    at once; ptxas register and spill counts printed; fails if ptxas gives
-   K3's and K3F's ``raster_kernel``, K4's ``raster_classic_kernel``, K2's
+   K3's and K3F's ``raster_kernel`` (at 8 and at 4 rows), K4's
+   ``raster_classic_kernel``, K2's
    ``run_bounds_kernel`` or K5's ``gather_tile_kernel`` a stack frame or
    spills), and hold
    ``native.build_meshlets`` equal to the Python meshlets;
@@ -198,7 +199,19 @@ lines and seconds; any failure raises and the exit code is non-zero):
    its metric lines; every gated frame (the static pose before and after
    the path against ``docs/golden/``, two path frames against the frames
    stored in ``benchmark/golden/`` and the classic route on the card) must
-   be exact.
+   be exact;
+24. K3 and K3F on the reference's 4-row tiles (``fused_tile_h=4``;
+   ``--tile-h4`` runs phases 1, 2 and 24 alone): every plain version made
+   to raise and the launch counts zeroed before the counted frames,
+   config4 subdiv 5 ("off", ``K3_raster_t4``) and subdiv 8 ("off", and
+   "auto": ``K3F_raster_shade_t4``) through ``Renderer`` equal their
+   goldens, and subdiv 8 in 2 and 4 slabs on the card equals the single
+   card's frame; no 8-row raster may launch there.  Then K3 at 4 rows
+   against its plain version at subdiv 8 (static, timed, and fly-by frame
+   12) and K3F at subdiv 8 (static, timed; fly-by frame 12, which clips
+   and expands wide pairs) and on config3 "on", bit for bit; and K3 and
+   K3F at 8 and at 4 rows on the same subdiv-8 frame, CUDA-event ms in
+   turns (8, 4, 4, 8).
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -269,15 +282,15 @@ def card_line() -> str:
 
 # (source, kernel symbol, instantiations) whose ptxas report phase 2 holds
 # to no stack frame and no spills
-NO_FRAME_KERNELS = (("raster.cu", "raster_kernel", 2),
+NO_FRAME_KERNELS = (("raster.cu", "raster_kernel", 4),
                     ("raster_classic.cu", "raster_classic_kernel", 1),
                     ("bincount.cu", "run_bounds_kernel", 1),
                     ("gather.cu", "gather_tile_kernel", 3))
 
 
 def check_frames(logs: dict) -> None:
-    """ptxas's report: every kernel of ``NO_FRAME_KERNELS`` (K3 and K3F,
-    K4, K2, K5) must have no stack frame and no spills."""
+    """ptxas's report: every kernel of ``NO_FRAME_KERNELS`` (K3 and K3F at
+    8 and 4 rows, K4, K2, K5) must have no stack frame and no spills."""
     import re
 
     for src, kernel, want in NO_FRAME_KERNELS:
@@ -455,6 +468,12 @@ def bound_ms(n_bytes: float, n_ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def k3_key(kernel: str, cfg) -> str:
+    """The key of K3 or K3F (``kernel``) in the timing and error dicts:
+    ``kernel`` on the default 8-row tiles, with ``_t4`` on 4-row ones."""
+    return kernel if cfg.tile_h == 8 else f"{kernel}_t{cfg.tile_h}"
+
+
 def k3_slots(rmeta, tbl_sorted, tbl_ext, cfg):
     """(streamed slots per range, the slots' box pixels): the pixels each
     slot can cover (``fused_kernel.slot_pixel_boxes``), which is K3's
@@ -539,6 +558,7 @@ def compare_kernels(r, cam, label: str, errs: dict, timed: bool = False):
     rmeta, tbl_sorted, tbl_ext, comb, stats = pipeline.render_front(
         r.statics, s, mm_t, mvp_t
     )
+    k3 = k3_key("K3", cfg)
     (vd, vt, pl), k3_ms = run_timed(lambda: fused_kernel.rasterize_distribute(
         rmeta, tbl_sorted, tbl_ext, comb, cfg), reps["K3"][0])
     (vd_p, vt_p, pl_p), p3_ms = run_timed(
@@ -546,8 +566,8 @@ def compare_kernels(r, cam, label: str, errs: dict, timed: bool = False):
             rmeta, tbl_sorted, tbl_ext, comb, cfg), reps["K3"][1])
     per_range, n_box = k3_slots(rmeta, tbl_sorted, tbl_ext, cfg)
     stats = {k: int(v) for k, v in stats.items()}
-    ms["K3"] = (k3_ms, p3_ms, None,
-                bound_ms(*k3_work(rmeta, n_box, vt, pl, stats)))
+    ms[k3] = (k3_ms, p3_ms, None,
+              bound_ms(*k3_work(rmeta, n_box, vt, pl, stats)))
     # background pixels carry NaN attributes whose payload bits are the
     # device's: planes are compared under the validity mask, and the
     # material / id / pad rows everywhere
@@ -557,26 +577,26 @@ def compare_kernels(r, cam, label: str, errs: dict, timed: bool = False):
         (torch.where(valid, pl, 0), torch.where(valid, pl_p, 0)),
         (pl[:, 16:], pl_p[:, 16:]),
     ])
-    require(err3 == 0, f"K3 differs from its plain version ({label}): {err3} "
-            f"({int((vt != vt_p).sum())} winner ids differ)")
-    for k, e in (("K1", err1), ("K2", err2), ("K3", err3)):
+    require(err3 == 0, f"{k3} differs from its plain version ({label}): "
+            f"{err3} ({int((vt != vt_p).sum())} winner ids differ)")
+    for k, e in (("K1", err1), ("K2", err2), (k3, err3)):
         errs[k] = max(errs.get(k, 0), e)
     n_slots = sum(per_range)
     stats["fine_slots"] = per_range[fused_kernel.FINE_RANGE]
-    say(f"{label}: K1, K2, K3 bit-equal to plain; covered px "
+    say(f"{label}: K1, K2, {k3} bit-equal to plain; covered px "
         f"{int((vt >= 0).sum())}, clipped {stats['n_clipped']}, "
         f"wide {stats['n_wide']}, wide pairs {stats['wide_pairs_n']}, "
         f"live rows {stats['live_rows']}, K3 streamed slots {n_slots} ("
         + ", ".join(f"{k} {v}" for k, v in zip(RANGE_NAMES, per_range))
         + f"), box slot-pixels {n_box}, brute-force slot-pixels "
-        f"{n_slots * fused_kernel.N_PIX}")
+        f"{n_slots * cfg.tile_h * fused_kernel.TILE_W}")
     if timed:
         # phases D and E alone: no record streamed, every plane written
         zero = torch.zeros_like(rmeta)
         _, z_ms = run_timed(lambda: fused_kernel.rasterize_distribute(
             zero, tbl_sorted, tbl_ext, comb, cfg), reps["K3"][0])
-        say(f"{label}: K3 with rmeta zeroed {z_ms:.4f} ms (with the records "
-            f"{k3_ms:.4f} ms)")
+        say(f"{label}: {k3} with rmeta zeroed {z_ms:.4f} ms (with the "
+            f"records {k3_ms:.4f} ms)")
     return stats, (ms if timed else None)
 
 
@@ -708,6 +728,28 @@ def compare_flyby(r, label: str, errs: dict) -> None:
             f"{label}: the frame neither clips nor expands wide pairs")
 
 
+def raster_inputs(r, cam, label: str):
+    """(the front's (rmeta, tbl_sorted, tbl_ext, comb, stats), shade mode,
+    consts) of renderer ``r``'s frame at ``cam``: what K3 (shade mode
+    None) and K3F take there.  Fails if ``r``'s settings route to phase
+    E."""
+    import torch
+
+    from ash_renderer_tpu_torch import pipeline
+    from ash_renderer_tpu_torch.ops import shade
+
+    s = r.state
+    mm_t, mvp_t, _ = front_inputs(r, cam)
+    atlas = s.atlas if r.statics.has_atlas else None
+    light = s.light if r.statics.has_light else None
+    smode = pipeline.shade_mode_for(r.statics, s.materials, atlas, light)
+    require(smode is not None, f"{label}: the settings route to phase E")
+    consts = shade.pack_shade_consts(
+        smode, s.materials, atlas, light,
+        torch.from_numpy(cam.position.astype("float32")).to(r.device))
+    return pipeline.render_front(r.statics, s, mm_t, mvp_t), smode, consts
+
+
 def compare_k3f(r, cam, label: str, errs: dict, timed: bool = False):
     """K3F (the raster kernel with phase F) against its plain version on
     the inputs the phase F path gives it for camera ``cam``; folds the max
@@ -715,21 +757,11 @@ def compare_k3f(r, cam, label: str, errs: dict, timed: bool = False):
     ``timed``, (kernel ms, plain ms, None, (bound ms, bound by))."""
     import torch
 
-    from ash_renderer_tpu_torch import pipeline
     from ash_renderer_tpu_torch.ops import fused_kernel as fk
-    from ash_renderer_tpu_torch.ops import shade
 
-    s, cfg = r.state, r.cfg
-    mm_t, mvp_t, _ = front_inputs(r, cam)
-    atlas = s.atlas if r.statics.has_atlas else None
-    light = s.light if r.statics.has_light else None
-    smode = pipeline.shade_mode_for(r.statics, s.materials, atlas, light)
-    require(smode is not None, f"{label}: the settings route to phase E")
-    cam_t = torch.from_numpy(cam.position.astype("float32")).to(r.device)
-    consts = shade.pack_shade_consts(smode, s.materials, atlas, light, cam_t)
-    rmeta, tbl_sorted, tbl_ext, comb, stats = pipeline.render_front(
-        r.statics, s, mm_t, mvp_t
-    )
+    cfg = r.cfg
+    (rmeta, tbl_sorted, tbl_ext, comb, stats), smode, consts = raster_inputs(
+        r, cam, label)
     reps = TIMING_REPS["K3F"] if timed else (0, 0)
     (vd, vt, pl), k_ms = run_timed(lambda: fk.rasterize_distribute(
         rmeta, tbl_sorted, tbl_ext, comb, cfg, smode, consts), reps[0])
@@ -744,12 +776,13 @@ def compare_k3f(r, cam, label: str, errs: dict, timed: bool = False):
         (torch.where(valid, pl, 0), torch.where(valid, pl_p, 0)),
         (pl[:, fk.F_TEXMASK + 1:], pl_p[:, fk.F_TEXMASK + 1:]),
     ])
-    require(err == 0, f"K3F differs from its plain version ({label}): {err} "
-            f"({int((vt != vt_p).sum())} winner ids differ)")
-    errs["K3F"] = max(errs.get("K3F", 0), err)
+    name = k3_key("K3F", cfg)
+    require(err == 0, f"{name} differs from its plain version ({label}): "
+            f"{err} ({int((vt != vt_p).sum())} winner ids differ)")
+    errs[name] = max(errs.get(name, 0), err)
     stats = {k: int(v) for k, v in stats.items()}
     v2 = valid[:, 0, :]
-    say(f"{label}: K3F bit-equal to plain (shade mode {smode}); covered px "
+    say(f"{label}: {name} bit-equal to plain (shade mode {smode}); covered px "
         f"{int(v2.sum())}, lit {int((pl[:, fk.F_LIT][v2] != 0).sum())}, "
         f"textured {int((pl[:, fk.F_TEXMASK][v2] != 0).sum())}, clipped "
         f"{stats['n_clipped']}, wide pairs {stats['wide_pairs_n']}")
@@ -1058,7 +1091,7 @@ def compare_raster(tables, cfg, smode, consts, label: str, errs: dict):
         (torch.where(valid, pl, 0), torch.where(valid, pl_p, 0)),
         (pl[:, exact:], pl_p[:, exact:]),
     ])
-    k = "K3" if smode is None else "K3F"
+    k = k3_key("K3" if smode is None else "K3F", cfg)
     require(err == 0, f"{k} differs from its plain version ({label}): {err} "
             f"({int((vt != vt_p).sum())} winner ids differ)")
     errs[k] = max(errs.get(k, 0), err)
@@ -1817,7 +1850,7 @@ def compare_slab_raster(r, cam, tile_row0: int, rows_per: int, label: str,
     rmeta, tbl_sorted, tbl_ext, comb, stats = pipeline.render_front(
         r.statics, s, mm_t, mvp_t, tile_row0=tile_row0, tile_rows=rows_per)
     win = dict(tile_row0=tile_row0, tile_rows=rows_per)
-    name = "K3" if smode is None else "K3F"
+    name = k3_key("K3" if smode is None else "K3F", cfg)
     (vd, vt, pl), k_ms = run_timed(lambda: fk.rasterize_distribute(
         rmeta, tbl_sorted, tbl_ext, comb, cfg, smode, consts, **win), 10)
     (vd_p, vt_p, pl_p), p_ms = run_timed(
@@ -1833,7 +1866,7 @@ def compare_slab_raster(r, cam, tile_row0: int, rows_per: int, label: str,
     require(err == 0, f"{name} differs from its plain version on slab rows "
             f"{tile_row0}+{rows_per} ({label}): {err} "
             f"({int((vt != vt_p).sum())} winner ids differ)")
-    require(vt.shape[0] == rows_per * fk.TILE_H and int((vt >= 0).sum()) > 0,
+    require(vt.shape[0] == rows_per * cfg.tile_h and int((vt >= 0).sum()) > 0,
             f"{label}: the slab covers nothing")
     errs[name] = max(errs.get(name, 0), err)
     say(f"{label}: {name} on slab tile rows {tile_row0}-"
@@ -2004,6 +2037,92 @@ def slab_checks(dev, card: str, errs: dict, head5, head8) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del legs, r8_1
     return counts
+
+
+def tile_h4_checks(dev, card: str, errs: dict, head5, head8, head3, r8_8):
+    """Phase 24: K3 and K3F on the reference's 4-row tiles
+    (``fused_tile_h=4``).  ``r8_8``: the default (8-row) subdiv-8 Renderer
+    the 4-row kernels are timed beside.  Returns ({"K3_t4", "K3F_t4"}:
+    (kernel ms, plain ms, None, (bound ms, bound by))}, the launch counts
+    of the counted frames)."""
+    import dataclasses
+
+    from ash_renderer_tpu_torch.ops import fused_kernel as fk
+    from ash_renderer_tpu_torch.parallel import make_render_mesh, slab_rows
+    from ash_renderer_tpu_torch.renderer import Renderer
+
+    (scene5, st5, cam5, g5), (scene8, st8, cam8, g8) = head5, head8
+    scene3, st3, cam3 = head3
+    t4 = dict(pipeline="fused", fused_tile_h=4)
+    r5 = Renderer(scene5, dataclasses.replace(
+        st5, fused_surface_shade="off", **t4), device=dev)
+    r8off = Renderer(scene8, dataclasses.replace(
+        st8, fused_surface_shade="off", **t4), device=dev)
+    r8 = Renderer(scene8, dataclasses.replace(st8, **t4), device=dev)
+    r8_n = {n: Renderer(scene8, dataclasses.replace(st8, **t4),
+                        mesh=make_render_mesh([dev] * n)) for n in (2, 4)}
+    r3 = Renderer(scene3, dataclasses.replace(
+        st3, fused_surface_shade="on", **t4), device=dev)
+    for r in (r5, r8off, r8, r3, *r8_n.values()):
+        require(r.cfg.tile_h == 4, f"fused_tile_h=4 gave {r.cfg.tile_h}-row tiles")
+
+    # the counted run: the goldens and the slab frames, plain versions
+    # raising
+    legs = (("subdiv 5 off", r5, cam5, g5), ("subdiv 8 off", r8off, cam8, g8),
+            (f"subdiv 8 {r8.settings.fused_surface_shade}", r8, cam8, g8))
+
+    def frames():
+        out = [r.read_frame(r.render_frame(cam)[0]) for _, r, cam, _ in legs]
+        return out + [r.read_frame(r.render_frame(cam8)[0])
+                      for r in r8_n.values()]
+
+    out, counts, _, _ = run_counted(frames)
+    for (label, r, _, g), f in zip(legs, out):
+        require(sha(f) == g["sha256"], f"tile_h 4, {label}: frame != golden")
+        say(f"tile_h 4, {label} ({f.shape[1]}x{f.shape[0]}, {r.cfg.grid_h} "
+            f"tile rows): golden sha256 EXACT")
+    for (n, r), f in zip(r8_n.items(), out[3:]):
+        require((f == out[2]).all(),
+                f"tile_h 4: the {n}-slab frame differs from the single card's")
+        say(f"tile_h 4, subdiv 8 in {n} slabs of {slab_rows(r.statics, n)} "
+            f"tile rows on {dev}: byte-equal to the single card's frame")
+    say(json.dumps(counts, sort_keys=True))
+    for k in ("K1_setup", "K2_run_bounds", "K3_raster_t4", "K3F_raster_shade_t4"):
+        require(counts.get(k, 0) > 0, f"{k} was not launched in phase 24")
+    for k in ("K3_raster", "K3F_raster_shade"):
+        require(not counts.get(k), f"{k} (8-row tiles) ran on 4-row tiles")
+    del r5, r8_n
+
+    # each kernel against its plain version, the static calls timed
+    timing = {}
+    timing["K3_t4"] = compare_kernels(r8off, cam8, "tile_h 4, subdiv 8 static",
+                                      errs, timed=True)[1]["K3_t4"]
+    compare_flyby(r8off, "tile_h 4, subdiv 8 fly-by", errs)
+    del r8off
+    timing["K3F_t4"] = compare_k3f(r8, cam8, "tile_h 4, subdiv 8 "
+                                   f"{r8.settings.fused_surface_shade}, static",
+                                   errs, timed=True)[1]
+    stats = compare_k3f(r8, flyby_camera(FLYBY_FRAME, N_FRAMES),
+                        "tile_h 4, subdiv 8 fly-by", errs)[0]
+    require(stats["n_clipped"] > 0 and stats["wide_pairs_n"] > 0,
+            "tile_h 4: the fly-by frame neither clips nor expands wide pairs")
+    compare_k3f(r3, cam3, "tile_h 4, config3 on", errs)
+    say_timing(card, timing, " (subdiv 8 static)")
+
+    # the kernels at 8 and 4 rows on the same frame, in turns (8, 4, 4, 8)
+    inputs = {th: (r.cfg, *raster_inputs(r, cam8, f"{th} rows"))
+              for th, r in ((8, r8_8), (4, r8))}
+    for name, shaded in (("K3", False), ("K3F", True)):
+        med = {8: [], 4: []}
+        for th in (8, 4, 4, 8):
+            cfg, front, smode, consts = inputs[th]
+            med[th].append(run_timed(lambda: fk.rasterize_distribute(
+                *front[:4], cfg, smode if shaded else None,
+                consts if shaded else None), TIMING_REPS[name][0])[1])
+        say(f"[{card}] {name} ms at subdiv 8 static in turns (8, 4, 4, 8 "
+            "rows): " + "; ".join(f"{th} rows {', '.join(f'{m:.4f}' for m in v)}"
+                                  for th, v in med.items()))
+    return timing, counts
 
 
 # the loss of the inverse-rendering example on the card against the CPU's:
@@ -2556,20 +2675,22 @@ def route_kernels(r):
     so K5 is never among them."""
     from ash_renderer_tpu_torch import pipeline
 
+    from ash_renderer_tpu_torch.ops import fused_kernel as fk
+
     st = r.settings
     route = f"{st.pipeline} / {st.fused_surface_shade}"
+    rasters = {fk.kernel_name(th, f) for th in fk.TILE_HEIGHTS
+               for f in (False, True)}  # K3 and K3F at 8 and 4 rows
     if st.pipeline == "classic":
         return route, {"K4_raster_classic"}, {
-            "K1_setup", "K2_run_bounds", "K3_raster", "K3F_raster_shade",
-            "K5_gather_rows"}
+            "K1_setup", "K2_run_bounds", "K5_gather_rows", *rasters}
     s = r.state
     phase_f = pipeline.shade_mode_for(
         r.statics, s.materials, s.atlas if r.statics.has_atlas else None,
         s.light if r.statics.has_light else None) is not None
-    k3, other = (("K3F_raster_shade", "K3_raster") if phase_f
-                 else ("K3_raster", "K3F_raster_shade"))
+    k3 = fk.kernel_name(r.cfg.tile_h, phase_f)
     return route, {"K1_setup", "K2_run_bounds", k3}, {
-        "K4_raster_classic", "K5_gather_rows", other}
+        "K4_raster_classic", "K5_gather_rows", *(rasters - {k3})}
 
 
 def require_route(label: str, counts: dict, r) -> str:
@@ -2746,6 +2867,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bench-cells", action="store_true",
                     help="run phases 1, 2 and 23 alone (the benchmark's "
                     "one-card cells); prints no kernels or ok line")
+    ap.add_argument("--tile-h4", action="store_true",
+                    help="run phases 1, 2 and 24 alone (K3 and K3F on 4-row "
+                    "tiles); prints no kernels or ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
@@ -2804,6 +2928,23 @@ def main(argv=None) -> int:
         return 0
     from ash_renderer_tpu_torch.camera import orbit_path
     from ash_renderer_tpu_torch.renderer import Renderer
+
+    def tile_h4_phase(errs, head5, head8, head3, r8_8):
+        with Phase("24 K3 / K3F at 4-row tiles"):
+            return tile_h4_checks(dev, card, errs, head5, head8, head3, r8_8)
+
+    if args.tile_h4:
+        heads = []
+        for n, g in ((5, "headline_config4_s5.json"),
+                     (8, "headline_config4.json")):
+            scene_n, st_n, cams_n = config4_million_tri(n)
+            heads.append((scene_n, st_n, cams_n[0], golden(g)))
+        scene3, st3, cams3 = config3_blinn_phong()
+        tile_h4_phase({}, *heads, (scene3, st3, cams3[0]),
+                      Renderer(heads[1][0], heads[1][1], device=dev))
+        say(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2 and "
+            "24 alone)")
+        return 0
 
     errs: dict = {}
     with Phase("3 kernels vs plain (subdiv 5)"):
@@ -3122,6 +3263,11 @@ def main(argv=None) -> int:
     auto_rules_phase(dev, card, (scene8, st8, cams8[0]))
     bench_cells_phase(card)
 
+    timing_t4, counts_t4 = tile_h4_phase(
+        errs, (scene5, st5, cams5[0], g5), (scene8, st8, cams8[0], g8),
+        (scene3, st3, cams3[0]), r8)
+    timing.update(timing_t4)
+
     meta = {
         "K1": ("K1_setup", "ash_renderer_tpu_torch/csrc/setup.cu",
                "ash_renderer_tpu/ops/setup_kernel.py:351", counts),
@@ -3131,6 +3277,10 @@ def main(argv=None) -> int:
                "ash_renderer_tpu/ops/fused_kernel.py:1087", counts),
         "K3F": ("K3F_raster_shade", "ash_renderer_tpu_torch/csrc/raster.cu",
                 "ash_renderer_tpu/ops/fused_kernel.py:128", counts_f),
+        "K3_t4": ("K3_raster_t4", "ash_renderer_tpu_torch/csrc/raster.cu",
+                  "ash_renderer_tpu/ops/fused_kernel.py:1087", counts_t4),
+        "K3F_t4": ("K3F_raster_shade_t4", "ash_renderer_tpu_torch/csrc/raster.cu",
+                   "ash_renderer_tpu/ops/fused_kernel.py:128", counts_t4),
         "K4": ("K4_raster_classic", "ash_renderer_tpu_torch/csrc/raster_classic.cu",
                "ash_renderer_tpu/ops/raster_pallas.py:203", counts_c),
         "K5": ("K5_gather_rows", "ash_renderer_tpu_torch/csrc/gather.cu",

@@ -147,9 +147,19 @@ def test_renderer_device_and_pipeline_policy(monkeypatch):
                      device="cpu")
         assert r.settings.pipeline == name
         assert (r.packed.local_tri is not None) == (name == "fused")
-    with pytest.raises(ValueError, match="8-row"):
+    # the fused route takes the reference's 4-row tiles as well as 8-row
+    # ones, and gives the same frame on both; any other height raises
+    frames = {}
+    for th in (8, 4):
+        r = Renderer(case.scene, dataclasses.replace(
+            tp.fused(case.settings), fused_tile_h=th), device="cpu")
+        assert r.cfg.tile_h == th and r.cfg.grid_h == 128 // th
+        frames[th] = r.read_frame(r.render_frame(case.cam)[0])
+    assert int((frames[4][..., :3] != 0).any(-1).sum()) > 300
+    np.testing.assert_array_equal(frames[4], frames[8])
+    with pytest.raises(ValueError, match="4- or 8-row"):
         Renderer(case.scene, dataclasses.replace(
-            tp.fused(case.settings), fused_tile_h=4), device="cpu")
+            tp.fused(case.settings), fused_tile_h=6), device="cpu")
     # the 16-row classic tiles do not read fused_tile_h
     Renderer(case.scene, dataclasses.replace(case.settings, fused_tile_h=4),
              device="cpu")
