@@ -34,7 +34,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-HEADERS = ("specmath.cuh",)
+HEADERS = ("specmath.cuh", "binsort.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -79,6 +79,17 @@ KERNELS = {
         # rec_i, rec_f, rec_box, tile_start, tile_count, vis_d, vis_t,
         # n_rec, n_tiles, grid_w, ss, stream
         "ash_rasterize_visibility": [_P] * 7 + [_I] * 4 + [_P],
+    },
+    "clip_tail.cu": {
+        # flags, n_tris, counts, stream
+        "ash_clip_count": [_P, _I, _P, _P],
+        # flags, n_tris, counts, n_chunks, budget, sel, counters, stream
+        "ash_clip_select": [_P, _I, _P, _I, _I, _P, _P, _P],
+        # tblT, tri_v, tri_mat, sel, comb_tail, keys, counters, n_verts,
+        # n_tris, budget, width, height, min_c, max_cx, max_cy, ss, gx, gy,
+        # row0, py_lo, py_hi, tile_h, grid_w, n_tiles (the key window),
+        # stream
+        "ash_clip_fan": [_P] * 7 + [_I] * 9 + [_F, _F] + [_I] * 6 + [_P],
     },
     "gather.cu": {
         # tbl, local_tri, out, n_tris, n_cols, stream

@@ -9,6 +9,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "binsort.cuh"
 #include "specmath.cuh"
 
 namespace {
@@ -139,32 +140,15 @@ setup_kernel(const int* __restrict__ tblT, const int* __restrict__ ltT,
   }
 
   // streaming key (ops/binsort.stream_keys formulas on the zeroed coords)
-  const int ss = P.ss, half = P.ss / 2;
-  const int xmin = zi(min(min(A.x, B.x), C.x));
-  const int xmax = zi(max(max(A.x, B.x), C.x));
-  const int ymin = zi(min(min(A.y, B.y), C.y));
-  const int ymax = zi(max(max(A.y, B.y), C.y));
-  const int pxmin = max(0, floordiv(xmin - half + ss - 1, ss));
-  const int pxmax = min(P.width - 1, floordiv(xmax - half, ss));
-  const int pymin = max(0, floordiv(ymin - half + ss - 1, ss));
-  const int pymax = min(P.height - 1, floordiv(ymax - half, ss));
-  const bool live = valid && pxmax >= pxmin && pymax >= pymin;
-  const int tx0 = floordiv(pxmin, TILE_W), tx1 = floordiv(pxmax, TILE_W);
-  const int ty0 = floordiv(pymin, P.tile_h), ty1 = floordiv(pymax, P.tile_h);
-  const bool spill_r = tx1 > tx0, spill_d = ty1 > ty0;
-  const bool wide = (tx1 - tx0 > 1) || (ty1 - ty0 > 1);
-  const int grp = spill_r && spill_d ? 0 : (spill_r ? 1 : (spill_d ? 2 : 3));
-  const int tile = ty0 * P.grid_w + tx0;
-  const bool fine =
-      grp == 3 && floordiv(pxmin, FINE_W) == floordiv(pxmax, FINE_W);
-  const int subc = floormod(floordiv(pxmin, FINE_W), TILE_W / FINE_W);
-  const int key_fine = P.n_tiles * N_GRP + tile * N_FINE + subc;
-  keys[tri] = live ? (wide ? P.n_tiles * KEYS_PER_TILE
-                           : (fine ? key_fine : tile * N_GRP + grp))
-                   : P.n_tiles * KEYS_PER_TILE + 1;
+  const PixelBox box = pixel_box(
+      zi(min(min(A.x, B.x), C.x)), zi(max(max(A.x, B.x), C.x)),
+      zi(min(min(A.y, B.y), C.y)), zi(max(max(A.y, B.y), C.y)), P.ss,
+      P.width, P.height);
+  const KeyWindow whole{0, 0, P.height - 1, P.tile_h, P.grid_w, P.n_tiles};
+  keys[tri] = stream_key(valid, box, whole);
   flags[tri] = (valid ? 1 : 0) | (needs_clip ? 2 : 0) | (fast ? 4 : 0);
-  extx[tri] = pack16(pxmin & 0xFFFF, pxmax);
-  exty[tri] = pack16(pymin & 0xFFFF, pymax);
+  extx[tri] = pack16(box.pxmin & 0xFFFF, box.pxmax);
+  exty[tri] = pack16(box.pymin & 0xFFFF, box.pymax);
 }
 
 }  // namespace

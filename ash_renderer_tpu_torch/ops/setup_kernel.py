@@ -64,7 +64,9 @@ def transform_vertices_T(positions, vert_obj, normals, colors, uvs,
     return sm.bitcast_i32(torch.stack(rows, dim=0))
 
 
-def _guard_factors(cfg):
+def guard_factors(cfg):
+    """The guard planes' float32 factors (gx, gy): 1 + 2 * guard_px /
+    width (height)."""
     gx = np.float32(1.0 + 2.0 * cfg.guard_px / cfg.width)
     gy = np.float32(1.0 + 2.0 * cfg.guard_px / cfg.height)
     return gx, gy
@@ -98,7 +100,7 @@ def triangle_setup(tblT, ltT, matT, cfg, tail_rows: int = 0):
     keys, flags, extx, exty = (
         torch.empty(t, dtype=torch.int32, device=dev) for _ in range(4)
     )
-    gx, gy = _guard_factors(cfg)
+    gx, gy = guard_factors(cfg)
     _build.launch(
         KERNEL, "ash_triangle_setup", dev,
         tblT.data_ptr(), ltT.data_ptr(), matT.data_ptr(), comb.data_ptr(),
@@ -117,7 +119,7 @@ def triangle_setup_plain(tblT, ltT, matT, cfg, tail_rows: int = 0):
     m = ltT.shape[0]
     t = m * MESHLET_TRIS
     ss = cfg.subpixel_scale
-    gx, gy = (float(v) for v in _guard_factors(cfg))
+    gx, gy = (float(v) for v in guard_factors(cfg))
     off = -cfg.min_coord
     lt = ltT.reshape(m, 3, MESHLET_TRIS)
     base = (torch.arange(m, device=dev) * MESHLET_VERTS)[:, None]

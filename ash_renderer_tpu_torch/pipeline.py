@@ -13,7 +13,7 @@ Stages, each a plain call on tensors of one device:
 
 1. vertex transform (``setup_kernel.transform_vertices_T``);
 2. triangle setup, kernel K1 (``setup_kernel.triangle_setup``);
-3. clip tail (``_clip_tail_into``);
+3. clip tail (``_clip_tail_into``, kernel K6);
 4. key sort + run bounds, kernel K2 (``binsort.sort_and_bounds``);
 5. wide-pair expansion, range metadata and table gathers
    (``expand_table``);
@@ -48,8 +48,8 @@ from typing import Optional
 import torch
 
 from .config import RasterConfig, RendererSettings
-from .ops import (binning, binsort, fused_kernel, geometry, raster_visibility,
-                  setup_kernel, shade, tritables)
+from .ops import (binning, binsort, clip_tail, fused_kernel, geometry,
+                  raster_visibility, setup_kernel, shade, tritables)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,30 +64,15 @@ class FrameStatics:
 
 def _clip_tail_into(statics, tblT, tri_v, tri_mat, flags, comb,
                     tile_row0: int = 0, tile_rows=None):
-    """Clip tail + stats; tail comb rows are written in place into the rows
-    reserved after the main block (comb row T onward), and keyed for the
-    tile-row window (the whole grid by default).  Returns (comb,
-    keys_tail, gstats)."""
-    cfg = statics.cfg
-    st = statics.settings
-    t = tri_v.shape[0]
-    needs_clip = ((flags >> 1) & 1).bool()
-    tail_f, (ta0, ta1, ta2), cstats = geometry.clip_tail_fused(
-        tblT, tri_v, tri_mat, needs_clip, cfg, st.clip_budget
-    )
-    comb[t:] = tritables.comb_rows(tail_f, ta0, ta1, ta2, cfg, id_base=t)
-    keys_tail = binsort.stream_keys(
-        tail_f["valid"], tail_f["x0"], tail_f["y0"], tail_f["x1"],
-        tail_f["y1"], tail_f["x2"], tail_f["y2"], cfg, tile_row0, tile_rows,
-    )
-    gstats = {
-        "clip_overflow": cstats["clip_overflow"],
-        "n_fast": ((flags >> 2) & 1).sum(),
-        "n_clipped": cstats["n_clipped"],
-        "n_valid": (flags & 1).sum() + tail_f["valid"].sum(),
-        "n_setup": comb.shape[0],
-    }
-    return comb, keys_tail, gstats
+    """Clip tail + stats (``clip_tail.clip_tail``, kernel K6 on a card);
+    tail comb rows are written in place into the rows reserved after the
+    main block (comb row T onward), and keyed for the tile-row window (the
+    whole grid by default).  Returns (comb, keys_tail, gstats); the
+    counters are 0-dim device tensors, read after the frame."""
+    keys_tail, counters = clip_tail.clip_tail(
+        tblT, tri_v, tri_mat, flags, comb, statics.cfg,
+        statics.settings.clip_budget, tile_row0, tile_rows)
+    return comb, keys_tail, {**counters, "n_setup": comb.shape[0]}
 
 
 def expand_table(statics, comb, order, bounds, tile_row0: int = 0,

@@ -211,7 +211,19 @@ lines and seconds; any failure raises and the exit code is non-zero):
    12) and K3F at subdiv 8 (static, timed; fly-by frame 12, which clips
    and expands wide pairs) and on config3 "on", bit for bit; and K3 and
    K3F at 8 and at 4 rows on the same subdiv-8 frame, CUDA-event ms in
-   turns (8, 4, 4, 8).
+   turns (8, 4, 4, 8);
+25. the clip tail, kernel K6 (``ops/clip_tail.clip_tail``; ``--clip-tail``
+   runs phases 1, 2 and 25 alone): its three launches against
+   ``clip_tail_plain`` on the card, bit for bit (the tail comb rows as
+   int32 words, the keys and the counters), on K1's outputs for terrain
+   at its golden pose (no clip) and at the terrain walk's first frame
+   (clips; timed with CUDA events beside the plain chain, with its bound),
+   that frame with a 16-triangle budget (overflow) and at a middle and
+   the last of 8 row slabs' windows, and config4 subdiv 8 at the fly-by's
+   closest approach and at an orbit frame that clips nothing; the
+   kernels' call runs under ``torch.cuda.set_sync_debug_mode("error")``
+   (no host read); one terrain front, every plain version raising,
+   launches K6 at most 3 times.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -1798,9 +1810,10 @@ PLAIN_VERSIONS = (
     ("ops.fused_kernel", "rasterize_distribute_plain"),
     ("ops.raster_visibility", "rasterize_visibility_plain"),
     ("ops.meshlet_gather", "gather_tri_rows_plain"),
+    ("ops.clip_tail", "clip_tail_plain"),
 )
 SLAB_KERNELS = ("K1_setup", "K2_run_bounds", "K3_raster", "K3F_raster_shade",
-                "K4_raster_classic", "K5_gather_rows")
+                "K4_raster_classic", "K5_gather_rows", "K6_clip_tail")
 
 
 class PlainVersionsRaise:
@@ -2123,6 +2136,124 @@ def tile_h4_checks(dev, card: str, errs: dict, head5, head8, head3, r8_8):
             "rows): " + "; ".join(f"{th} rows {', '.join(f'{m:.4f}' for m in v)}"
                                   for th, v in med.items()))
     return timing, counts
+
+
+# operations per selected triangle of K6, counted from its source: 6 planes
+# x 12 polygon slots x 16 channels x ~6 (intersection and placement), then
+# 7 fan triangles of ~150 (3 snaps, the area, recip_spec, the key)
+K6_OPS_PER_CLIP = 6 * 12 * 16 * 6 + 7 * 150
+K6_REPS = (20, 3)  # CUDA-event repetitions (kernels, plain chain)
+
+
+def clip_tail_case(r, cam, label: str, errs: dict, budget=None,
+                   tile_row0: int = 0, tile_rows=None, timed: bool = False):
+    """K6 (``clip_tail.clip_tail``) against ``clip_tail_plain`` on the
+    inputs renderer ``r``'s front gives for camera ``cam`` (K1's comb and
+    flags), with ``budget`` (the renderer's by default) and the tile-row
+    window: the tail comb rows as int32 words, the keys and the counters,
+    bit for bit; the main rows untouched.  The kernels' call runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host read on their
+    path raises.  Returns (the counters as ints, with ``timed`` (kernel
+    ms, plain ms, None, (bound ms, bound by)) else None)."""
+    import torch
+
+    from ash_renderer_tpu_torch.ops import clip_tail, geometry, setup_kernel
+
+    s, cfg = r.state, r.cfg
+    budget = r.settings.clip_budget if budget is None else budget
+    _, _, tblT = front_inputs(r, cam)
+    comb, _, flags, _, _ = setup_kernel.triangle_setup(
+        tblT, s.ltT, s.matT, cfg, tail_rows=budget * geometry.MAX_CLIP_TRIS)
+    t = flags.shape[0]
+    args = (tblT, s.tri_v, s.tri_mat, flags)
+    win = (cfg, budget, tile_row0, tile_rows)
+    comb_k, comb_p = comb.clone(), comb.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keys, cnt = clip_tail.clip_tail(*args, comb_k, *win)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    reps = K6_REPS if timed else (0, 0)
+    (keys, cnt), k_ms = run_timed(
+        lambda: clip_tail.clip_tail(*args, comb_k, *win), reps[0])
+    (keys_p, cnt_p), p_ms = run_timed(
+        lambda: clip_tail.clip_tail_plain(*args, comb_p, *win), reps[1])
+    err = _max_err([(comb_k[t:], comb_p[t:]), (keys, keys_p)]
+                   + [(cnt[k].reshape(1), cnt_p[k].reshape(1))
+                      for k in clip_tail.COUNTERS])
+    errs["K6"] = max(errs.get("K6", 0), err)
+    require(err == 0, f"K6 differs from clip_tail_plain ({label}): {err}")
+    require(bool((comb_k[:t] == comb[:t]).all()),
+            f"K6 wrote into the main comb rows ({label})")
+    stats = {k: int(v) for k, v in cnt.items()}
+    say(f"{label}: K6 bit-equal to clip_tail_plain ({budget * 7} tail rows, "
+        f"keys, counters; window rows {tile_row0}+{tile_rows or cfg.grid_h}): "
+        + ", ".join(f"{k} {v}" for k, v in stats.items()))
+    if not timed:
+        return stats, None
+    n_sel = min(stats["n_clipped"], budget)
+    n_bytes = (t * 4  # flags
+               + n_sel * (3 + 3 * 16 + 1) * 4  # corner ids, rows, material
+               + budget * geometry.MAX_CLIP_TRIS * (128 + 1) * 4)  # rows, keys
+    return stats, (k_ms, p_ms, None, bound_ms(n_bytes, n_sel * K6_OPS_PER_CLIP))
+
+
+def clip_tail_checks(dev, card: str, errs: dict, r8) -> dict:
+    """Phase 25: the clip tail, kernel K6, against ``clip_tail_plain`` on
+    the card, bit for bit: terrain at its golden pose (no clip) and at the
+    walk's first frame (clips; timed), the walk frame with a 16-triangle
+    budget (overflow) and in a middle and the last of 8 row slabs, config4
+    subdiv 8 (``r8``) at the fly-by's closest approach and at an orbit
+    frame that clips nothing; then the launches of one front.  Returns
+    {"K6": (kernel ms, plain ms, None, (bound ms, bound by))}."""
+    import torch
+
+    from ash_renderer_tpu_torch import _build, pipeline
+    from ash_renderer_tpu_torch.benchmarks import config4_terrain
+    from ash_renderer_tpu_torch.camera import orbit_path
+    from ash_renderer_tpu_torch.parallel import slab_rows
+    from ash_renderer_tpu_torch.renderer import Renderer
+    from benchmark import cells
+
+    scene_t, st_t, cams_t = config4_terrain()
+    rt = Renderer(scene_t, st_t, device=dev)
+    walk = cells.path_of(cells.load()["terrain-walk"], 1, cells.DEFAULT_SEED)[0]
+    stats = clip_tail_case(rt, cams_t[0], "terrain golden pose", errs)[0]
+    stats, timed = clip_tail_case(rt, walk, "terrain walk frame 0", errs,
+                                  timed=True)
+    require(stats["n_clipped"] > 16 and stats["clip_overflow"] == 0,
+            "terrain walk frame 0 clips too little or overflows")
+    n_clipped = stats["n_clipped"]
+    stats = clip_tail_case(rt, walk, "terrain walk frame 0, budget 16", errs,
+                           budget=16)[0]
+    require(stats["clip_overflow"] == n_clipped - 16,
+            "budget 16: the overflow is not the candidates past the budget")
+    rows_per = slab_rows(rt.statics, 8)
+    for i in (3, 7):
+        clip_tail_case(rt, walk, f"terrain walk frame 0, slab {i} of 8", errs,
+                       tile_row0=i * rows_per, tile_rows=rows_per)
+    stats = clip_tail_case(r8, flyby_camera(FLYBY_FRAME, N_FRAMES),
+                           "config4 subdiv 8 fly-by closest approach", errs)[0]
+    require(stats["n_clipped"] > 0, "the fly-by frame does not clip")
+    orbit = orbit_path(N_FRAMES, radius=2.0, center=[0.0, 0.0, 2.0])[5]
+    stats = clip_tail_case(r8, orbit, "config4 subdiv 8 orbit frame 5", errs)[0]
+    require(stats["n_clipped"] == 0, "the orbit frame clips")
+
+    # the launches of one terrain front on the card
+    mm_t, mvp_t, _ = front_inputs(rt, walk)
+    _, counts, _, _ = run_counted(lambda: pipeline.render_front(
+        rt.statics, rt.state, mm_t, mvp_t))
+    n = counts.get("K6_clip_tail", 0)
+    require(0 < n <= 3, f"K6 launched {n} times in one front, not 1-3")
+    k_ms, p_ms, _, (b_ms, by) = timed
+    say(f"[{card}] K6 at the terrain walk frame ({n_clipped} clipped, budget "
+        f"{rt.settings.clip_budget}): {k_ms:.4f} ms for its {n} launches, "
+        f"clip_tail_plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); "
+        f"launches of one front: {json.dumps(counts, sort_keys=True)}")
+    del rt
+    torch.cuda.synchronize()
+    return {"K6": timed}
 
 
 # the loss of the inverse-rendering example on the card against the CPU's:
@@ -2683,13 +2814,14 @@ def route_kernels(r):
                for f in (False, True)}  # K3 and K3F at 8 and 4 rows
     if st.pipeline == "classic":
         return route, {"K4_raster_classic"}, {
-            "K1_setup", "K2_run_bounds", "K5_gather_rows", *rasters}
+            "K1_setup", "K2_run_bounds", "K5_gather_rows", "K6_clip_tail",
+            *rasters}
     s = r.state
     phase_f = pipeline.shade_mode_for(
         r.statics, s.materials, s.atlas if r.statics.has_atlas else None,
         s.light if r.statics.has_light else None) is not None
     k3 = fk.kernel_name(r.cfg.tile_h, phase_f)
-    return route, {"K1_setup", "K2_run_bounds", k3}, {
+    return route, {"K1_setup", "K6_clip_tail", "K2_run_bounds", k3}, {
         "K4_raster_classic", "K5_gather_rows", *(rasters - {k3})}
 
 
@@ -2870,6 +3002,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tile-h4", action="store_true",
                     help="run phases 1, 2 and 24 alone (K3 and K3F on 4-row "
                     "tiles); prints no kernels or ok line")
+    ap.add_argument("--clip-tail", action="store_true",
+                    help="run phases 1, 2 and 25 alone (the clip tail, K6); "
+                    "prints no kernels or ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
@@ -2933,6 +3068,16 @@ def main(argv=None) -> int:
         with Phase("24 K3 / K3F at 4-row tiles"):
             return tile_h4_checks(dev, card, errs, head5, head8, head3, r8_8)
 
+    def clip_tail_phase(errs, r8):
+        with Phase("25 the clip tail (K6) vs plain"):
+            return clip_tail_checks(dev, card, errs, r8)
+
+    if args.clip_tail:
+        scene8, st8, _ = config4_million_tri(8)
+        clip_tail_phase({}, Renderer(scene8, st8, device=dev))
+        say(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2 and "
+            "25 alone)")
+        return 0
     if args.tile_h4:
         heads = []
         for n, g in ((5, "headline_config4_s5.json"),
@@ -3267,6 +3412,7 @@ def main(argv=None) -> int:
         errs, (scene5, st5, cams5[0], g5), (scene8, st8, cams8[0], g8),
         (scene3, st3, cams3[0]), r8)
     timing.update(timing_t4)
+    timing.update(clip_tail_phase(errs, r8))
 
     meta = {
         "K1": ("K1_setup", "ash_renderer_tpu_torch/csrc/setup.cu",
@@ -3287,6 +3433,10 @@ def main(argv=None) -> int:
                "ash_renderer_tpu/ops/meshlet_gather.py:97", counts_c),
         "K5_F12": ("K5_gather_rows_F12", "ash_renderer_tpu_torch/csrc/gather.cu",
                    "ash_renderer_tpu/ops/meshlet_gather.py:97", counts_k5),
+        # no Pallas kernel: the reference's clip tail is XLA glue under one
+        # jit (_clip_tail_into)
+        "K6": ("K6_clip_tail", "ash_renderer_tpu_torch/csrc/clip_tail.cu",
+               "none (ash_renderer_tpu/pipeline.py:416, XLA glue)", counts),
     }
     kernels = []
     for k, (name, src, rep, n) in meta.items():
