@@ -91,6 +91,13 @@ KERNELS = {
         # stream
         "ash_clip_fan": [_P] * 7 + [_I] * 9 + [_F, _F] + [_I] * 6 + [_P],
     },
+    "shade_pack.cu": {
+        # planes, quads (or NULL), n_quads, light colour (or NULL), sRGB
+        # LUT (or NULL), out, grid_w, tile_h, out_h, out_w, ss, inv_ss2,
+        # has_m, clear rgba, stream
+        "ash_shade_pack": [_P, _P, _I, _P, _P, _P] + [_I] * 5 + [_F, _I]
+                          + [_F] * 4 + [_P],
+    },
     "gather.cu": {
         # tbl, local_tri, out, n_tris, n_cols, stream
         "ash_gather_tri_rows": [_P] * 3 + [_I] * 2 + [_P],

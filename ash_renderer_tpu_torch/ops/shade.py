@@ -13,6 +13,8 @@ bit for bit on any device.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -188,12 +190,26 @@ def tex_address(off, w, h, u, v):
 _TEXEL_SHIFTS = (0, 8, 16, 24)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_constant(device, values, dtype):
+    """``torch.tensor(values, dtype)`` on ``device``, made at first use and
+    kept, so a frame uploads no host constant (callers only read it)."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def srgb_lut(device):
+    """``specmath.srgb_encode_lut()`` on ``device``, built once a device
+    (callers only read it)."""
+    return torch.from_numpy(sm.srgb_encode_lut()).to(device)
+
+
 def bilinear(quads, tap, fu, fv):
     """The tap half: one quad-table row gather fetches the 2x2 footprint
     (c00, c10, c01, c11, RGBA8 each), then two lerps along u and one along
     v.  Returns (..., 4) f32 RGBA."""
     quad = _take(quads, tap)  # (..., 4) packed texels
-    shifts = torch.tensor(_TEXEL_SHIFTS, dtype=I32, device=quad.device)
+    shifts = _device_constant(quad.device, _TEXEL_SHIFTS, I32)
     # (..., corner, channel)
     c = ((quad[..., :, None] >> shifts) & 255).to(F32) * _f32(1.0 / 255.0)
     top = sm.lerp(c[..., 0, :], c[..., 1, :], fu[..., None])
@@ -325,9 +341,9 @@ def combine_from_prelight(valid, p, diffuse, spec, lit, tap, fu, fv, texmask,
             rgb = rgb + spec[..., None, :] * light.color[:, None]
         p = torch.cat([torch.where((lit != 0)[..., None, :], rgb, p[..., :3, :]),
                        p[..., 3:, :]], dim=-2)
-    clear = torch.tensor(
-        np.asarray(clear_color, dtype=np.float32), device=p.device
-    )
+    clear = _device_constant(
+        p.device, tuple(np.asarray(clear_color, dtype=np.float32).tolist()),
+        F32)
     return torch.where(valid[..., None], p.movedim(-2, -1), clear)
 
 
@@ -389,21 +405,28 @@ def shade_gathered(valid, g, a0, a1, a2, shade_mode, consts, atlas=None,
     )
 
 
+def box_resolve(rgba, supersample: int):
+    """Box-resolve the supersampled (H*s, W*s, 4) image: ordered sum over
+    the s*s footprint (i outer, j inner, from sample (0, 0)), then *
+    1/s^2; the image itself at supersample 1."""
+    if supersample == 1:
+        return rgba
+    h, w = rgba.shape[0] // supersample, rgba.shape[1] // supersample
+    r = rgba.reshape(h, supersample, w, supersample, 4)
+    acc = None
+    for i in range(supersample):
+        for j in range(supersample):
+            term = r[:, i, :, j, :]
+            acc = term if acc is None else acc + term
+    return acc * _f32(1.0 / (supersample * supersample))
+
+
 def resolve_and_pack(rgba, supersample: int, srgb: bool):
-    """Box-resolve the supersampled (H*s, W*s, 4) image (ordered sum over
-    the s*s footprint, then * 1/s^2) and pack to RGBA8, optionally through
-    the sRGB LUT."""
-    if supersample > 1:
-        h, w = rgba.shape[0] // supersample, rgba.shape[1] // supersample
-        r = rgba.reshape(h, supersample, w, supersample, 4)
-        acc = None
-        for i in range(supersample):
-            for j in range(supersample):
-                term = r[:, i, :, j, :]
-                acc = term if acc is None else acc + term
-        rgba = acc * _f32(1.0 / (supersample * supersample))
+    """``box_resolve`` and pack to RGBA8, optionally through the sRGB
+    LUT."""
+    rgba = box_resolve(rgba, supersample)
     if srgb:
-        lut = torch.from_numpy(sm.srgb_encode_lut()).to(rgba.device)
+        lut = srgb_lut(rgba.device)
         idx = torch.round(torch.clamp(rgba[..., :3], 0.0, 1.0) * 4095.0).long()
         rgba = torch.cat([lut[idx], rgba[..., 3:4]], dim=-1)
     return sm.pack_unorm8(rgba)

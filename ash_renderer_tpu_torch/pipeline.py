@@ -20,9 +20,12 @@ Stages, each a plain call on tensors of one device:
 6. raster + distribute, kernel K3 (``fused_kernel.rasterize_distribute``),
    or K3F, which also runs the surface half of shading (phase F) when
    ``shade_mode_for`` gives a shade mode;
-7. shade + pack (``_shade_from_planes``): the surface half of shading
+7. shade + pack (``_shade_from_planes``): after K3F, kernel K7
+   (``shade_pack.shade_pack``: texture tap, combine, clear, resolve,
+   sRGB, RGBA8 in one launch); after K3, the surface half of shading
    from the phase E planes (``shade.surface_prelight``, the torch
-   definition phase F follows), then the texture tap and the combine.
+   definition phase F follows), then the texture tap, the combine and
+   the pack in torch.
 
 Stages 1-5 (the front) depend only on the scene and the model + MVP
 matrices, so ``FrontCache`` reuses them while those bytes stay the same.
@@ -49,7 +52,8 @@ import torch
 
 from .config import RasterConfig, RendererSettings
 from .ops import (binning, binsort, clip_tail, fused_kernel, geometry,
-                  raster_visibility, setup_kernel, shade, tritables)
+                  raster_visibility, setup_kernel, shade, shade_pack,
+                  tritables)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -269,46 +273,36 @@ def shade_mode_for(statics, materials, atlas, light):
 
 def _shade_from_planes(statics, planes, mode, consts, phase_f, atlas, light,
                        full_frame: bool = True):
-    """Shade the (n_tiles, 24, tile_h * 128) planes tile-flat, then lay the
-    RGBA out as the image of their n_tiles / grid_w tile rows, cropped to
-    the width, and to the height only for the ``full_frame`` (a slab's rows
-    stay whole).  ``mode`` and ``consts``: the scene's ``surface_mode`` and its
+    """Shade the (n_tiles, 24, tile_h * 128) planes tile-flat into the
+    RGBA8 image of their n_tiles / grid_w tile rows, cropped to the width,
+    and to the height only for the ``full_frame`` (a slab's rows stay
+    whole).  ``mode`` and ``consts``: the scene's ``surface_mode`` and its
     packed tables; ``phase_f``: whether the planes hold the phase F layout
-    (the surface half is done) or phase E's (it is run here,
-    ``shade.surface_prelight``).  ``atlas`` and ``light`` are None where
+    (the surface half is done: ``shade_pack.shade_pack``, kernel K7 on a
+    card) or phase E's (the surface half runs here,
+    ``shade.surface_prelight``, then the combine and
+    ``shade_pack.pack_tiles``).  ``atlas`` and ``light`` are None where
     the scene has none."""
     cfg = statics.cfg
     st = statics.settings
-    th, tw = cfg.tile_h, fused_kernel.TILE_W
-    gw = cfg.grid_w
-    gh = planes.shape[0] // gw
-    rows = cfg.height if full_frame else gh * th
     _, _, has_m, has_a, has_l = mode
-    pf = planes.view(torch.float32)
+    atlas = atlas if has_a else None
+    light = light if has_l else None
     if phase_f:
-        fk = fused_kernel
-        pre = (pf[:, fk.F_P : fk.F_P + 4], pf[:, fk.F_DIFF : fk.F_DIFF + 3],
-               pf[:, fk.F_SPEC], planes[:, fk.F_LIT], planes[:, fk.F_TAP],
-               pf[:, fk.F_FU], pf[:, fk.F_FV], planes[:, fk.F_TEXMASK])
-    else:
-        pre = shade.surface_prelight(
-            pf[:, 0:12], tuple(pf[:, 12 + k] for k in range(4)), planes[:, 16],
-            mode, consts)
+        return shade_pack.shade_pack(
+            planes, cfg, st.supersample, st.srgb_output, st.clear_color,
+            atlas=atlas, light=light, has_materials=has_m,
+            full_frame=full_frame)
+    pf = planes.view(torch.float32)
+    pre = shade.surface_prelight(
+        pf[:, 0:12], tuple(pf[:, 12 + k] for k in range(4)), planes[:, 16],
+        mode, consts)
     rgba = shade.combine_from_prelight(
-        planes[:, fused_kernel.VIS_ROW] >= 0, *pre,
-        atlas=atlas if has_a else None, light=light if has_l else None,
+        planes[:, fused_kernel.VIS_ROW] >= 0, *pre, atlas=atlas, light=light,
         has_materials=has_m, clear_color=st.clear_color,
     )
-
-    def to_image(x):
-        return (
-            x.reshape(gh, gw, th, tw, 4).permute(0, 2, 1, 3, 4)
-            .reshape(gh * th, gw * tw, 4)[:rows, : cfg.width]
-        )
-
-    if st.supersample == 1:
-        return to_image(shade.resolve_and_pack(rgba, 1, st.srgb_output))
-    return shade.resolve_and_pack(to_image(rgba), st.supersample, st.srgb_output)
+    return shade_pack.pack_tiles(rgba, cfg, st.supersample, st.srgb_output,
+                                 full_frame)
 
 
 class FrontCache:

@@ -12,8 +12,8 @@ lines and seconds; any failure raises and the exit code is non-zero):
    at once; ptxas register and spill counts printed; fails if ptxas gives
    K3's and K3F's ``raster_kernel`` (at 8 and at 4 rows), K4's
    ``raster_classic_kernel``, K2's
-   ``run_bounds_kernel`` or K5's ``gather_tile_kernel`` a stack frame or
-   spills), and hold
+   ``run_bounds_kernel``, K5's ``gather_tile_kernel`` or K7's
+   ``shade_pack_kernel`` a stack frame or spills), and hold
    ``native.build_meshlets`` equal to the Python meshlets;
 3. each kernel against its plain torch version on the card, on config4 at
    subdiv 5 (20,480 triangles, 1080p), at the static camera and at a
@@ -223,7 +223,21 @@ lines and seconds; any failure raises and the exit code is non-zero):
    closest approach and at an orbit frame that clips nothing; the
    kernels' call runs under ``torch.cuda.set_sync_debug_mode("error")``
    (no host read); one terrain front, every plain version raising,
-   launches K6 at most 3 times.
+   launches K6 at most 3 times;
+26. shade + pack, kernel K7 (``ops/shade_pack.shade_pack``;
+   ``--shade-pack`` runs phases 1, 2 and 26 alone): its one launch against
+   ``shade_pack_plain`` on the card, bit for bit (the RGBA8 frame), on
+   K3F's planes of config4 subdiv 8 at the static pose (timed with CUDA
+   events beside the plain chain, with its bound) and at an orbit frame
+   on 8- and on 4-row tiles, of slab 3 of the 8-slab split (rows
+   uncropped), of config5 frame 0 (2x SSAA) and of the ``ssaa_srgb``
+   golden scene on the fused route with "on" (2x SSAA, sRGB), each
+   kernel call after the first under ``torch.cuda.set_sync_debug_mode(
+   "error")``; then the static planes with NaN, +-Inf and -0.0 in rows
+   0-7 of a tenth of the covered samples: bit-equal on every channel
+   whose float value is not NaN, each NaN channel packed to 0, and with
+   sRGB equal to the plain LUT and pack of the frame with NaN as 0.0.
+   Every frame of K3F's route launches K7 (``route_kernels``).
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -297,12 +311,13 @@ def card_line() -> str:
 NO_FRAME_KERNELS = (("raster.cu", "raster_kernel", 4),
                     ("raster_classic.cu", "raster_classic_kernel", 1),
                     ("bincount.cu", "run_bounds_kernel", 1),
-                    ("gather.cu", "gather_tile_kernel", 3))
+                    ("gather.cu", "gather_tile_kernel", 3),
+                    ("shade_pack.cu", "shade_pack_kernel", 1))
 
 
 def check_frames(logs: dict) -> None:
     """ptxas's report: every kernel of ``NO_FRAME_KERNELS`` (K3 and K3F at
-    8 and 4 rows, K4, K2, K5) must have no stack frame and no spills."""
+    8 and 4 rows, K4, K2, K5, K7) must have no stack frame and no spills."""
     import re
 
     for src, kernel, want in NO_FRAME_KERNELS:
@@ -1811,9 +1826,11 @@ PLAIN_VERSIONS = (
     ("ops.raster_visibility", "rasterize_visibility_plain"),
     ("ops.meshlet_gather", "gather_tri_rows_plain"),
     ("ops.clip_tail", "clip_tail_plain"),
+    ("ops.shade_pack", "shade_pack_plain"),
 )
 SLAB_KERNELS = ("K1_setup", "K2_run_bounds", "K3_raster", "K3F_raster_shade",
-                "K4_raster_classic", "K5_gather_rows", "K6_clip_tail")
+                "K4_raster_classic", "K5_gather_rows", "K6_clip_tail",
+                "K7_shade_pack")
 
 
 class PlainVersionsRaise:
@@ -2254,6 +2271,231 @@ def clip_tail_checks(dev, card: str, errs: dict, r8) -> dict:
     del rt
     torch.cuda.synchronize()
     return {"K6": timed}
+
+
+# operations per render sample of K7, counted from its source: the quad's
+# 4 channels x (4 byte scalings and 3 lerps of 3 ops), the modulation, the
+# light combine (9) and the resolve (4); the LUT and pack per pixel
+K7_OPS_PER_SAMPLE = 80
+K7_REPS = (20, 5)  # CUDA-event repetitions (kernel, plain chain)
+K7_SPECIALS = (float("nan"), float("inf"), float("-inf"), -0.0)
+
+
+def k7_inputs(r, cam, label: str, tile_row0: int = 0, tile_rows=None):
+    """(K3F's planes of renderer ``r``'s frame at ``cam``, for the whole
+    grid or the slab window, and ``shade_pack``'s other arguments as the
+    pipeline passes them).  Fails if ``r``'s settings route to phase E."""
+    import torch
+
+    from ash_renderer_tpu_torch import pipeline
+    from ash_renderer_tpu_torch.ops import fused_kernel as fk
+    from ash_renderer_tpu_torch.ops import shade
+
+    s, st = r.state, r.settings
+    mm_t, mvp_t, _ = front_inputs(r, cam)
+    atlas = s.atlas if r.statics.has_atlas else None
+    light = s.light if r.statics.has_light else None
+    smode = pipeline.shade_mode_for(r.statics, s.materials, atlas, light)
+    require(smode is not None, f"{label}: the settings route to phase E")
+    consts = shade.pack_shade_consts(
+        smode, s.materials, atlas, light,
+        torch.from_numpy(cam.position.astype("float32")).to(r.device))
+    win = dict(tile_row0=tile_row0, tile_rows=tile_rows)
+    front = pipeline.render_front(r.statics, s, mm_t, mvp_t, **win)
+    planes = fk.rasterize_distribute(*front[:4], r.cfg, smode, consts,
+                                     **win)[2]
+    _, _, has_m, has_a, has_l = smode
+    return planes, (r.cfg, st.supersample, st.srgb_output, st.clear_color,
+                    atlas if has_a else None, light if has_l else None,
+                    has_m, tile_rows is None)
+
+
+def k7_float_frame(planes, args):
+    """The plain chain's RGBA before sRGB and pack: combine, relayout,
+    SSAA box."""
+    from ash_renderer_tpu_torch.ops import shade, shade_pack
+
+    cfg, ss, _, clear, atlas, light, has_m, full = args
+    return shade.box_resolve(shade_pack.tile_image(shade_pack.combine_planes(
+        planes, clear, atlas, light, has_m), cfg, full), ss)
+
+
+def k7_work(planes, args, out):
+    """(bytes, ops) K7 needs at least for these planes: each render sample
+    of the frame's crop reads its winner id, a covered one its P words,
+    with a light its lit word (and diffuse, and specular with materials,
+    where lit), with an atlas its texmask (and tap, fu, fv where
+    textured) and each distinct quad it taps once; the sRGB LUT; the RGBA8
+    frame written once.  Ops per sample: ``K7_OPS_PER_SAMPLE``."""
+    import torch
+
+    from ash_renderer_tpu_torch.ops import fused_kernel as fk
+    from ash_renderer_tpu_torch.ops import shade_pack
+
+    cfg, _, srgb, _, atlas, light, has_m, full = args
+
+    def img(row):
+        return shade_pack.tile_image(planes[:, row], cfg, full)
+
+    valid = img(fk.VIS_ROW) >= 0
+    n_valid = int(valid.sum())
+    words = valid.numel() + 4 * n_valid + out.numel() // 4
+    if light is not None:
+        words += n_valid + int((valid & (img(fk.F_LIT) != 0)).sum()) * (
+            3 + int(has_m))
+    if atlas is not None:
+        tex = valid & (img(fk.F_TEXMASK) != 0)
+        taps = img(fk.F_TAP)[tex].clamp(0, atlas.quads.shape[0] - 1)
+        words += n_valid + 3 * int(tex.sum()) + 4 * int(
+            torch.unique(taps).numel())
+    if srgb:
+        words += 4096
+    return words * 4, valid.numel() * K7_OPS_PER_SAMPLE
+
+
+def k7_case(r, cam, label: str, errs: dict, tile_row0: int = 0,
+            tile_rows=None, timed: bool = False):
+    """K7 (``shade_pack.shade_pack``) against ``shade_pack_plain`` on
+    K3F's planes of renderer ``r``'s frame at ``cam`` (the whole frame or
+    the slab window), bit for bit; the kernel's second call runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host read: the first
+    builds the device's sRGB LUT).  Returns (planes, shade_pack's other
+    arguments, with ``timed`` (kernel ms, plain ms, None, (bound ms,
+    bound by)) else None)."""
+    import torch
+
+    from ash_renderer_tpu_torch.ops import fused_kernel as fk
+    from ash_renderer_tpu_torch.ops import shade_pack
+
+    planes, args = k7_inputs(r, cam, label, tile_row0, tile_rows)
+    shade_pack.shade_pack(planes, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        shade_pack.shade_pack(planes, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    reps = K7_REPS if timed else (0, 0)
+    out, k_ms = run_timed(lambda: shade_pack.shade_pack(planes, *args),
+                          reps[0])
+    out_p, p_ms = run_timed(
+        lambda: shade_pack.shade_pack_plain(planes, *args), reps[1])
+    require(out.shape == out_p.shape and out.dtype == out_p.dtype,
+            f"K7 gives {tuple(out.shape)} {out.dtype}, the plain chain "
+            f"{tuple(out_p.shape)} {out_p.dtype} ({label})")
+    err = _max_err([(out.int(), out_p.int())])
+    errs["K7"] = max(errs.get("K7", 0), err)
+    require(err == 0, f"K7 differs from shade_pack_plain ({label}): {err} "
+            f"({int((out != out_p).any(-1).sum())} pixels)")
+    cfg, ss, srgb = args[0], args[1], args[2]
+    say(f"{label}: K7 bit-equal to shade_pack_plain ({out.shape[1]}x"
+        f"{out.shape[0]}, tile_h {cfg.tile_h}, ss {ss}, sRGB {srgb}, atlas "
+        f"{args[4] is not None}, light {args[5] is not None}, materials "
+        f"{args[6]}, rows {'cropped' if args[7] else 'whole'}); covered "
+        f"samples {int((planes[:, fk.VIS_ROW] >= 0).sum())}")
+    if not timed:
+        return planes, args, None
+    return planes, args, (k_ms, p_ms, None, bound_ms(*k7_work(planes, args,
+                                                               out)))
+
+
+def k7_non_finite(planes, args, label: str, errs: dict) -> None:
+    """K7 on ``planes`` with NaN, +-Inf and -0.0 written into rows 0-7 of
+    a tenth of the covered samples (seeded): bit-equal to the plain chain
+    on every channel whose float value is not NaN, and 0 on every NaN
+    channel; with sRGB, bit-equal to the plain chain's LUT and pack of the
+    float frame with each NaN taken as 0.0 (the plain chain's own sRGB
+    path is not run on NaN: its index cast is undefined, and an index out
+    of the LUT would stop the card)."""
+    import dataclasses
+
+    import torch
+
+    from ash_renderer_tpu_torch.ops import fused_kernel as fk
+    from ash_renderer_tpu_torch.ops import shade, shade_pack
+
+    g = torch.Generator(device=planes.device).manual_seed(26)
+    bad = planes.clone()
+    shape = (bad.shape[0], bad.shape[2])
+    pick = torch.randint(0, len(K7_SPECIALS), shape, generator=g,
+                         device=bad.device)
+    vals = torch.tensor(K7_SPECIALS, device=bad.device)[pick].view(torch.int32)
+    for row in range(fk.F_SPEC + 1):
+        hit = (bad[:, fk.VIS_ROW] >= 0) & (
+            torch.rand(shape, generator=g, device=bad.device) < 0.1)
+        bad[:, row] = torch.where(hit, vals, bad[:, row])
+    f = k7_float_frame(bad, args)
+    nan = torch.isnan(f)
+    out = shade_pack.shade_pack(bad, *args)
+    out_p = shade_pack.shade_pack_plain(bad, *args)
+    err = _max_err([(torch.where(nan, 0, out.int()),
+                     torch.where(nan, 0, out_p.int()))])
+    pinned = int(out[nan].int().abs().max()) if bool(nan.any()) else 0
+    errs["K7"] = max(errs.get("K7", 0), err)
+    require(int(nan.sum()) > 1000 and bool(torch.isinf(f).any()),
+            f"{label}: too few NaN or Inf channels reach the pack")
+    require(err == 0, f"K7 differs from shade_pack_plain on non-NaN "
+            f"channels ({label}, non-finite planes): {err}")
+    require(pinned == 0, f"K7 packs a NaN channel to {pinned}, not 0")
+    plain_nan = torch.unique(out_p[nan]).tolist()
+    srgb_args = (args[0], args[1], True, *args[3:])
+    out_s = shade_pack.shade_pack(bad, *srgb_args)
+    want_s = shade.resolve_and_pack(torch.where(nan, 0.0, f), 1, True)
+    err_s = _max_err([(out_s.int(), want_s.int())])
+    errs["K7"] = max(errs.get("K7", 0), err_s)
+    require(err_s == 0, f"K7 with sRGB differs on non-finite planes "
+            f"({label}): {err_s}")
+    say(f"{label} with NaN, +-Inf, -0.0 in rows 0-7: K7 bit-equal to "
+        f"shade_pack_plain on every non-NaN channel; {int(nan.sum())} NaN "
+        f"channels pack to 0 (the plain chain gives {plain_nan} there); "
+        f"with sRGB equal to the NaN-as-0.0 frame; {int(torch.isinf(f).sum())}"
+        " Inf channels")
+
+
+def shade_pack_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
+    """Phase 26: shade + pack, kernel K7, against ``shade_pack_plain`` on
+    the card, bit for bit, on K3F's planes of: config4 subdiv 8 (``r8``)
+    at the static pose ``cam8`` (timed) and an orbit frame at 8- and at 4-row
+    tiles, a middle slab of the 8-slab split, config5 frame 0 (2x SSAA),
+    the ``ssaa_srgb`` golden scene on the fused route, and the static
+    planes carrying NaN, +-Inf and -0.0.  Returns {"K7": (kernel ms, plain
+    ms, None, (bound ms, bound by))}."""
+    import dataclasses
+
+    import torch
+
+    from ash_renderer_tpu_torch.benchmarks import (GOLDEN_SCENES,
+                                                   config5_flythrough)
+    from ash_renderer_tpu_torch.camera import Camera, orbit_path
+    from ash_renderer_tpu_torch.parallel import slab_rows
+    from ash_renderer_tpu_torch.renderer import Renderer
+
+    static = cam8
+    orbit = orbit_path(N_FRAMES, radius=2.0, center=[0.0, 0.0, 2.0])[5]
+    planes, args, timed = k7_case(r8, static, "config4 subdiv 8 static",
+                                  errs, timed=True)
+    k7_case(r8, orbit, "config4 subdiv 8 orbit frame 5", errs)
+    r8_4 = Renderer(r8.scene, dataclasses.replace(r8.settings,
+                                                  fused_tile_h=4), device=dev)
+    k7_case(r8_4, orbit, "config4 subdiv 8 orbit frame 5, 4-row tiles", errs)
+    del r8_4
+    rows_per = slab_rows(r8.statics, 8)
+    k7_case(r8, static, "config4 subdiv 8 static, slab 3 of 8", errs,
+            tile_row0=3 * rows_per, tile_rows=rows_per)
+    scene5, st5, cams5 = config5_flythrough()
+    k7_case(Renderer(scene5, st5, device=dev), cams5[0],
+            "config5 frame 0", errs)
+    scene_g, st_g = GOLDEN_SCENES["ssaa_srgb"]()
+    k7_case(Renderer(scene_g, dataclasses.replace(
+        st_g, pipeline="fused", fused_surface_shade="on"), device=dev),
+        Camera(), "ssaa_srgb golden scene (fused, on)", errs)
+    k7_non_finite(planes, args, "config4 subdiv 8 static", errs)
+    k_ms, p_ms, _, (b_ms, by) = timed
+    say(f"[{card}] K7 at the subdiv-8 static frame: {k_ms:.4f} ms, "
+        f"shade_pack_plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+        f"{b_ms / k_ms:.0%} of it")
+    torch.cuda.synchronize()
+    return {"K7": timed}
 
 
 # the loss of the inverse-rendering example on the card against the CPU's:
@@ -2800,13 +3042,14 @@ def ab_decision(rows):
 def route_kernels(r):
     """(the Renderer ``r``'s route as "pipeline / shade", the kernels each
     of its frames must launch, the kernels it must not launch): its
-    resolved ``settings.pipeline``, and on the fused route K3F exactly
-    where ``pipeline.shade_mode_for`` gives its statics a shade mode (the
-    table caps included).  The Renderer packs the classic route plainly,
-    so K5 is never among them."""
+    resolved ``settings.pipeline``, and on the fused route K3F and K7
+    exactly where ``pipeline.shade_mode_for`` gives its statics a shade
+    mode (the table caps included).  The Renderer packs the classic route
+    plainly, so K5 is never among them."""
     from ash_renderer_tpu_torch import pipeline
 
     from ash_renderer_tpu_torch.ops import fused_kernel as fk
+    from ash_renderer_tpu_torch.ops import shade_pack
 
     st = r.settings
     route = f"{st.pipeline} / {st.fused_surface_shade}"
@@ -2815,14 +3058,17 @@ def route_kernels(r):
     if st.pipeline == "classic":
         return route, {"K4_raster_classic"}, {
             "K1_setup", "K2_run_bounds", "K5_gather_rows", "K6_clip_tail",
-            *rasters}
+            shade_pack.KERNEL, *rasters}
     s = r.state
     phase_f = pipeline.shade_mode_for(
         r.statics, s.materials, s.atlas if r.statics.has_atlas else None,
         s.light if r.statics.has_light else None) is not None
     k3 = fk.kernel_name(r.cfg.tile_h, phase_f)
-    return route, {"K1_setup", "K6_clip_tail", "K2_run_bounds", k3}, {
-        "K4_raster_classic", "K5_gather_rows", *(rasters - {k3})}
+    shade_k = {shade_pack.KERNEL}
+    return route, {"K1_setup", "K6_clip_tail", "K2_run_bounds", k3,
+                   *(shade_k if phase_f else ())}, {
+        "K4_raster_classic", "K5_gather_rows", *(rasters - {k3}),
+        *(() if phase_f else shade_k)}
 
 
 def require_route(label: str, counts: dict, r) -> str:
@@ -3005,6 +3251,9 @@ def main(argv=None) -> int:
     ap.add_argument("--clip-tail", action="store_true",
                     help="run phases 1, 2 and 25 alone (the clip tail, K6); "
                     "prints no kernels or ok line")
+    ap.add_argument("--shade-pack", action="store_true",
+                    help="run phases 1, 2 and 26 alone (shade + pack, K7); "
+                    "prints no kernels or ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
@@ -3072,11 +3321,21 @@ def main(argv=None) -> int:
         with Phase("25 the clip tail (K6) vs plain"):
             return clip_tail_checks(dev, card, errs, r8)
 
+    def shade_pack_phase(errs, r8, cam8):
+        with Phase("26 shade + pack (K7) vs plain"):
+            return shade_pack_checks(dev, card, errs, r8, cam8)
+
     if args.clip_tail:
         scene8, st8, _ = config4_million_tri(8)
         clip_tail_phase({}, Renderer(scene8, st8, device=dev))
         say(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2 and "
             "25 alone)")
+        return 0
+    if args.shade_pack:
+        scene8, st8, cams8 = config4_million_tri(8)
+        shade_pack_phase({}, Renderer(scene8, st8, device=dev), cams8[0])
+        say(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2 and "
+            "26 alone)")
         return 0
     if args.tile_h4:
         heads = []
@@ -3413,6 +3672,7 @@ def main(argv=None) -> int:
         (scene3, st3, cams3[0]), r8)
     timing.update(timing_t4)
     timing.update(clip_tail_phase(errs, r8))
+    timing.update(shade_pack_phase(errs, r8, cams8[0]))
 
     meta = {
         "K1": ("K1_setup", "ash_renderer_tpu_torch/csrc/setup.cu",
@@ -3437,6 +3697,10 @@ def main(argv=None) -> int:
         # jit (_clip_tail_into)
         "K6": ("K6_clip_tail", "ash_renderer_tpu_torch/csrc/clip_tail.cu",
                "none (ash_renderer_tpu/pipeline.py:416, XLA glue)", counts),
+        # no Pallas kernel: the reference's shade + pack after the fused
+        # kernel is XLA glue (_shade_from_planes, phase F branch)
+        "K7": ("K7_shade_pack", "ash_renderer_tpu_torch/csrc/shade_pack.cu",
+               "none (ash_renderer_tpu/pipeline.py:239, XLA glue)", counts),
     }
     kernels = []
     for k, (name, src, rep, n) in meta.items():
