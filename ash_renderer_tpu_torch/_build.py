@@ -98,6 +98,17 @@ KERNELS = {
         "ash_shade_pack": [_P, _P, _I, _P, _P, _P] + [_I] * 5 + [_F, _I]
                           + [_F] * 4 + [_P],
     },
+    "transform.cu": {
+        # positions, vert_obj, normals, colors, uvs, model_mats, mvp_mats,
+        # out, n_verts, n_obj, stream
+        "ash_vertex_transform": [_P] * 8 + [_I] * 2 + [_P],
+    },
+    "front_meta.cu": {
+        # comb, order, bounds, rects, wrow, tile_cnt, meta, pair_rows,
+        # pair_starts, rmeta, n_tiles, grid_w, tile_h, row0, py_lo, py_hi,
+        # width, height, ss, min_c, wide_rows, wide_pairs, s_rows, stream
+        "ash_front_meta": [_P] * 10 + [_I] * 13 + [_P],
+    },
     "gather.cu": {
         # tbl, local_tri, out, n_tris, n_cols, stream
         "ash_gather_tri_rows": [_P] * 3 + [_I] * 2 + [_P],
@@ -183,10 +194,11 @@ def load(source: str) -> ctypes.CDLL:
     return _LIBS[source]
 
 
-def launch(kernel: str, entry: str, device, *args) -> None:
+def launch(kernel: str, entry: str, device, *args, count: int = 1) -> None:
     """Call the C entry point ``entry`` with ``args`` and ``device``'s
     current stream, with ``device`` made current; raise if it reports a CUDA
-    error, else count one launch of ``kernel``."""
+    error, else count ``count`` launches of ``kernel`` (the kernels the
+    entry point launches)."""
     import torch
 
     fn = getattr(load(_ENTRY_SOURCE[entry]), entry)
@@ -194,4 +206,4 @@ def launch(kernel: str, entry: str, device, *args) -> None:
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc}")
-    launches[kernel] += 1
+    launches[kernel] += count

@@ -33,10 +33,12 @@ from .. import _build
 from .. import specmath as sm
 from ..scene import MESHLET_TRIS, MESHLET_VERTS
 from . import binsort
-from .geometry import vertex_rows
 from .tritables import ID_COL, TBL_COLS
+from .vertex_transform import N_ROWS as N_TBL_ROWS  # clip x,y,z,w + 12 attrs
+# the vertex stage's entry point: kernel K8 on CUDA tensors, the plain chain
+# (``geometry.vertex_rows`` stacked) on CPU ones
+from .vertex_transform import transform_vertices_T  # noqa: F401
 
-N_TBL_ROWS = 16  # clip x,y,z,w + 12 attrs
 KERNEL = "K1_setup"
 
 
@@ -53,15 +55,6 @@ def prep_static(local_tri: np.ndarray, tri_mat: np.ndarray,
     )
     matT = np.ascontiguousarray(np.asarray(tri_mat).reshape(m, MESHLET_TRIS))
     return ltT.astype(np.int32), matT.astype(np.int32)
-
-
-def transform_vertices_T(positions, vert_obj, normals, colors, uvs,
-                         model_mats, mvp_mats):
-    """Vertex stage: (16, V) int32 table [clip4 | color4 | world normal3 |
-    uv2 | world pos3] (float32 bits): ``geometry.vertex_rows`` stacked."""
-    rows = vertex_rows(positions, vert_obj, normals, colors, uvs, model_mats,
-                       mvp_mats)
-    return sm.bitcast_i32(torch.stack(rows, dim=0))
 
 
 def guard_factors(cfg):

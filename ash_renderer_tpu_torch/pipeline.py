@@ -11,12 +11,12 @@ shading (``shade.shade``), resolve + pack.
 The fused one (``render_frame_fused_staged``, meshlet-packed scenes).
 Stages, each a plain call on tensors of one device:
 
-1. vertex transform (``setup_kernel.transform_vertices_T``);
+1. vertex transform (``setup_kernel.transform_vertices_T``, kernel K8);
 2. triangle setup, kernel K1 (``setup_kernel.triangle_setup``);
 3. clip tail (``_clip_tail_into``, kernel K6);
 4. key sort + run bounds, kernel K2 (``binsort.sort_and_bounds``);
-5. wide-pair expansion, range metadata and table gathers
-   (``expand_table``);
+5. wide-pair expansion and range metadata (kernel K9), then the table
+   gathers sized by the front's one host read (``expand_table``);
 6. raster + distribute, kernel K3 (``fused_kernel.rasterize_distribute``),
    or K3F, which also runs the surface half of shading (phase F) when
    ``shade_mode_for`` gives a shade mode;
@@ -51,9 +51,9 @@ from typing import Optional
 import torch
 
 from .config import RasterConfig, RendererSettings
-from .ops import (binning, binsort, clip_tail, fused_kernel, geometry,
-                  raster_visibility, setup_kernel, shade, shade_pack,
-                  tritables)
+from .ops import (binning, binsort, clip_tail, front_meta, fused_kernel,
+                  geometry, raster_visibility, setup_kernel, shade,
+                  shade_pack, tritables)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,24 +81,19 @@ def _clip_tail_into(statics, tblT, tri_v, tri_mat, flags, comb,
 
 def expand_table(statics, comb, order, bounds, tile_row0: int = 0,
                  tile_rows=None):
-    """Wide-pair expansion + range metadata + the live-prefix table gathers
-    on the sorted order of the tile-row window (the whole grid by default).
-    Returns (rmeta, tbl_sorted, tbl_ext, sstats)."""
-    cfg = statics.cfg
+    """Wide-pair expansion + range metadata (``front_meta.front_meta``,
+    kernel K9 on a card) + the live-prefix table gathers on the sorted order
+    of the tile-row window (the whole grid by default).  The counts K9
+    leaves on the device are read here, once: the front's one host read,
+    which sizes the two gathers.  Returns (rmeta, tbl_sorted, tbl_ext,
+    sstats)."""
     st = statics.settings
-    n_tiles = binsort.window_rows(cfg, tile_row0, tile_rows)[0] * cfg.grid_w
-    pair_rows, pair_starts, new_ws = binsort.expand_wide_pairs(
-        comb, order, bounds, cfg, st.wide_rows, st.wide_pairs, tile_row0,
-        tile_rows
-    )
-    rmeta = fused_kernel.build_range_meta(
-        bounds, n_tiles, cfg.grid_w, pair_starts, new_ws
-    )
-    edges = bounds[n_tiles * binsort.KEYS_PER_TILE :][:2].tolist()
-    ws, live_end = edges
-    n_pairs = int(pair_starts[-1])
-    tbl_sorted = tritables.sorted_table(comb, order.long(), live_end)
-    tbl_ext = tritables.sorted_table(comb, pair_rows.long(), n_pairs)
+    pair_rows, _, rmeta, counts = front_meta.front_meta(
+        comb, order, bounds, statics.cfg, st.wide_rows, st.wide_pairs,
+        tile_row0, tile_rows)
+    ws, live_end, new_ws, n_pairs = counts.tolist()
+    tbl_sorted = tritables.sorted_table(comb, order, live_end)
+    tbl_ext = tritables.sorted_table(comb, pair_rows, n_pairs)
     sstats = {
         "n_wide": live_end - ws,
         "wide_pairs_n": n_pairs,

@@ -264,8 +264,8 @@ class Renderer:
 
         On a CUDA device, build (where no library is built yet) and load
         the kernel libraries this renderer's route launches: K4's on the
-        classic route (plain-packed, so no K5), K1's, K6's, K2's and K3 /
-        K3F's on the fused one, in row slabs too.  One nvcc process per source,
+        classic route (plain-packed, so no K5), the front's (K8, K1, K6,
+        K2, K9) and K3 / K3F's on the fused one, in row slabs too.  One nvcc process per source,
         all started together, or one after another with ``parallel=False``.
         A CPU renderer builds nothing: its wrappers run the plain versions.
         Then, with ``execute``, render one frame at the default ``Camera()``
@@ -285,8 +285,8 @@ class Renderer:
         if self.device.type == "cuda":
             sources = (("raster_classic.cu",)
                        if self.settings.pipeline == "classic"
-                       else ("setup.cu", "clip_tail.cu", "bincount.cu",
-                             "raster.cu"))
+                       else ("transform.cu", "setup.cu", "clip_tail.cu",
+                             "bincount.cu", "front_meta.cu", "raster.cu"))
             for group in ((sources,) if parallel
                           else tuple((s,) for s in sources)):
                 _build.build(group)

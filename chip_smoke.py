@@ -12,8 +12,9 @@ lines and seconds; any failure raises and the exit code is non-zero):
    at once; ptxas register and spill counts printed; fails if ptxas gives
    K3's and K3F's ``raster_kernel`` (at 8 and at 4 rows), K4's
    ``raster_classic_kernel``, K2's
-   ``run_bounds_kernel``, K5's ``gather_tile_kernel`` or K7's
-   ``shade_pack_kernel`` a stack frame or spills), and hold
+   ``run_bounds_kernel``, K5's ``gather_tile_kernel``, K7's
+   ``shade_pack_kernel``, K8's ``transform_kernel`` or K9's four kernels
+   a stack frame or spills), and hold
    ``native.build_meshlets`` equal to the Python meshlets;
 3. each kernel against its plain torch version on the card, on config4 at
    subdiv 5 (20,480 triangles, 1080p), at the static camera and at a
@@ -86,8 +87,8 @@ lines and seconds; any failure raises and the exit code is non-zero):
    parity-gate scene (the same seed and shapes, 256x192, K3F) equals the
    port's numpy oracle and the same function on CPU tensors; the five
    pinned golden scenes and config4 at subdiv 5 and 8 under "off" (K3)
-   and "on" (K3F) equal their sha256; K2, K3 and K3F must have launched,
-   K1 and K5 not; then K3 / K3F against their plain versions on the
+   and "on" (K3F) equal their sha256; K2, K3, K3F and K9 must have
+   launched, K1, K5 and K8 not; then K3 / K3F against their plain versions on the
    fallback's own tables (gate scene, subdiv 8 static, subdiv 5 fly-by),
    and the subdiv-8 static uncached frame ms (median, mean, max) beside
    ``render_frame_fused_staged``'s, in turns, with the fallback's stage
@@ -237,7 +238,28 @@ lines and seconds; any failure raises and the exit code is non-zero):
    0-7 of a tenth of the covered samples: bit-equal on every channel
    whose float value is not NaN, each NaN channel packed to 0, and with
    sRGB equal to the plain LUT and pack of the frame with NaN as 0.0.
-   Every frame of K3F's route launches K7 (``route_kernels``).
+   Every frame of K3F's route launches K7 (``route_kernels``);
+27. the vertex transform, kernel K8 (``ops/vertex_transform.
+   transform_vertices_T``; ``--front-glue`` runs phases 1, 2, 27 and 28
+   alone): its launch against ``transform_vertices_T_plain`` on the card,
+   bit for bit (the (16, V) table as int32 words), under
+   ``torch.cuda.set_sync_debug_mode("error")``, on config4 subdiv 8 at
+   the static pose (timed with CUDA events beside the plain chain, with
+   its bound) and the fly-by's closest approach, and on config5's two
+   objects (the ``vert_obj`` gather) at two frames;
+28. the wide-pair expansion and range metadata, kernel K9
+   (``ops/front_meta.front_meta``): its four launches against
+   ``front_meta_plain`` on the card, bit for bit (pair_starts, rmeta, the
+   counts [ws, we, new_ws, n_pairs] and the first n_pairs pair rows),
+   under ``torch.cuda.set_sync_debug_mode("error")``, on config4 subdiv 8
+   at the fly-by's closest approach (wide pairs live), in slab 3 of 8 and
+   on 4-row tiles there, on terrain at the walk's first frame (timed,
+   beside the launch floor) and there with ``wide_rows`` 64 and with half
+   its pairs as ``wide_pairs`` (each cut); one moving front makes exactly
+   one host read (``set_sync_debug_mode("warn")``); a moving frame
+   launches K8 once and K9 four times, a cached static frame neither
+   (``route_kernels``).  Every frame that computes a fused front launches
+   K8 and K9; the fallback's front (phase 14) launches K9, not K8.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -312,12 +334,17 @@ NO_FRAME_KERNELS = (("raster.cu", "raster_kernel", 4),
                     ("raster_classic.cu", "raster_classic_kernel", 1),
                     ("bincount.cu", "run_bounds_kernel", 1),
                     ("gather.cu", "gather_tile_kernel", 3),
-                    ("shade_pack.cu", "shade_pack_kernel", 1))
+                    ("shade_pack.cu", "shade_pack_kernel", 1),
+                    ("transform.cu", "transform_kernel", 1),
+                    ("front_meta.cu", "rows_kernel", 1),
+                    ("front_meta.cu", "tile_row_kernel", 2),
+                    ("front_meta.cu", "scan_kernel", 1))
 
 
 def check_frames(logs: dict) -> None:
     """ptxas's report: every kernel of ``NO_FRAME_KERNELS`` (K3 and K3F at
-    8 and 4 rows, K4, K2, K5, K7) must have no stack frame and no spills."""
+    8 and 4 rows, K4, K2, K5, K7, K8, K9's four) must have no stack frame
+    and no spills."""
     import re
 
     for src, kernel, want in NO_FRAME_KERNELS:
@@ -1246,9 +1273,11 @@ def fallback_checks(dev, card, errs: dict, head5, head8):
     torch.cuda.synchronize()
     counts = dict(_build.launches)
     say(json.dumps(counts, sort_keys=True))
-    for k in ("K2_run_bounds", "K3_raster", "K3F_raster_shade"):
+    for k in ("K2_run_bounds", "K3_raster", "K3F_raster_shade",
+              "K9_front_meta"):
         require(counts.get(k, 0) > 0, f"{k} was not launched in phase 14")
-    for k in ("K1_setup", "K5_gather_rows"):
+    # the fallback's transform is the classic setup's plain chain
+    for k in ("K1_setup", "K5_gather_rows", "K8_vertex_transform"):
         require(counts.get(k, 0) == 0, f"{k} ran on the fallback route")
 
     covered = int((aux_g["vis_tri"] >= 0).sum())
@@ -1827,10 +1856,12 @@ PLAIN_VERSIONS = (
     ("ops.meshlet_gather", "gather_tri_rows_plain"),
     ("ops.clip_tail", "clip_tail_plain"),
     ("ops.shade_pack", "shade_pack_plain"),
+    ("ops.vertex_transform", "transform_vertices_T_plain"),
+    ("ops.front_meta", "front_meta_plain"),
 )
 SLAB_KERNELS = ("K1_setup", "K2_run_bounds", "K3_raster", "K3F_raster_shade",
                 "K4_raster_classic", "K5_gather_rows", "K6_clip_tail",
-                "K7_shade_pack")
+                "K7_shade_pack", "K8_vertex_transform", "K9_front_meta")
 
 
 class PlainVersionsRaise:
@@ -2498,6 +2529,273 @@ def shade_pack_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
     return {"K7": timed}
 
 
+# operations per vertex of K8, counted from its source: 7 rows of
+# apply_mat4_point (4 mul, 3 add) and 3 of apply_mat3_vec (3 mul, 2 add)
+K8_OPS_PER_VERT = 7 * 7 + 3 * 5
+K8_REPS = (20, 5)  # CUDA-event repetitions (kernel, plain chain)
+
+
+def k8_case(r, cam, label: str, errs: dict, timed: bool = False):
+    """K8 (``vertex_transform.transform_vertices_T``) against
+    ``transform_vertices_T_plain`` on renderer ``r``'s vertices and the
+    matrices of camera ``cam``, bit for bit (the (16, V) table as int32
+    words); the kernel's call runs under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Returns, with ``timed``,
+    (kernel ms, plain ms, None, (bound ms, bound by)), else None."""
+    import torch
+
+    from ash_renderer_tpu_torch.ops import vertex_transform as vt
+
+    s = r.state
+    mm_t, mvp_t, _ = front_inputs(r, cam)
+    args = (s.positions, s.vert_obj, s.normals, s.colors, s.uvs, mm_t, mvp_t)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vt.transform_vertices_T(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    reps = K8_REPS if timed else (0, 0)
+    out, k_ms = run_timed(lambda: vt.transform_vertices_T(*args), reps[0])
+    out_p, p_ms = run_timed(lambda: vt.transform_vertices_T_plain(*args),
+                            reps[1])
+    require(out.shape == out_p.shape and out.dtype == out_p.dtype,
+            f"K8 gives {tuple(out.shape)} {out.dtype} ({label})")
+    err = _max_err([(out, out_p)])
+    errs["K8"] = max(errs.get("K8", 0), err)
+    require(err == 0, f"K8 differs from transform_vertices_T_plain ({label}): "
+            f"{err} ({int((out != out_p).any(0).sum())} vertices)")
+    v, n_obj = out.shape[1], mm_t.shape[0]
+    say(f"{label}: K8 bit-equal to transform_vertices_T_plain ({v} vertices, "
+        f"{n_obj} object{'s' if n_obj > 1 else ''})")
+    if not timed:
+        return None
+    # each vertex's position, normal, colour, uv (and object id with more
+    # than one object) read once, its 16 words written once; the matrices
+    n_bytes = v * (48 + 4 * (n_obj > 1) + 64) + n_obj * 2 * 64
+    return k_ms, p_ms, None, bound_ms(n_bytes, v * K8_OPS_PER_VERT)
+
+
+def front_sorted(r, cam, tile_row0: int = 0, tile_rows=None):
+    """(comb, order, bounds) that renderer ``r``'s fused front hands K9 for
+    camera ``cam``, for the whole grid or the slab window: stages 1-4 of
+    ``pipeline.render_front``."""
+    import torch
+
+    from ash_renderer_tpu_torch import pipeline
+    from ash_renderer_tpu_torch.ops import binsort, geometry, setup_kernel
+
+    s, cfg = r.state, r.cfg
+    _, _, tblT = front_inputs(r, cam)
+    comb, keys_main, flags, extx, exty = setup_kernel.triangle_setup(
+        tblT, s.ltT, s.matT, cfg,
+        tail_rows=r.settings.clip_budget * geometry.MAX_CLIP_TRIS)
+    if tile_rows is not None:
+        keys_main = binsort.stream_keys_from_aabb(
+            (flags & 1).bool(), extx, exty, cfg, tile_row0, tile_rows)
+    comb, keys_tail, _ = pipeline._clip_tail_into(
+        r.statics, tblT, s.tri_v, s.tri_mat, flags, comb, tile_row0, tile_rows)
+    order, bounds = binsort.sort_and_bounds(
+        torch.cat([keys_main, keys_tail]), cfg, tile_rows)
+    return comb, order, bounds
+
+
+# operations of K9 per wide row (unpack, box, clamps, rectangle, scan) and
+# per pair written, counted from its source
+K9_OPS_PER_ROW = 60
+K9_OPS_PER_PAIR = 4
+K9_REPS = (20, 3)  # CUDA-event repetitions (kernels, plain chain)
+
+
+def k9_case(r, cam, label: str, errs: dict, tile_row0: int = 0,
+            tile_rows=None, budgets=None, timed: bool = False):
+    """K9 (``front_meta.front_meta``) against ``front_meta_plain`` on the
+    sorted front renderer ``r`` gives for camera ``cam`` (the whole grid or
+    the slab window), with ``budgets`` (wide_rows, wide_pairs; the
+    renderer's by default): pair_starts, rmeta, the counts and the first
+    n_pairs pair rows, bit for bit; the kernels' call runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host read).  Returns
+    ({n_wide, n_fit, n_pairs, leftover}, with ``timed`` (kernel ms, plain
+    ms, None, (bound ms, bound by)) else None)."""
+    import torch
+
+    from ash_renderer_tpu_torch.ops import binsort, front_meta
+
+    st = r.settings
+    wide_rows, wide_pairs = budgets or (st.wide_rows, st.wide_pairs)
+    comb, order, bounds = front_sorted(r, cam, tile_row0, tile_rows)
+    args = (comb, order, bounds, r.cfg, wide_rows, wide_pairs, tile_row0,
+            tile_rows)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        front_meta.front_meta(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    reps = K9_REPS if timed else (0, 0)
+    (rows, starts, rmeta, counts), k_ms = run_timed(
+        lambda: front_meta.front_meta(*args), reps[0])
+    (rows_p, starts_p, rmeta_p, counts_p), p_ms = run_timed(
+        lambda: front_meta.front_meta_plain(*args), reps[1])
+    ws, we, new_ws, n_pairs = counts_p.tolist()
+    err = _max_err([(starts, starts_p), (rmeta, rmeta_p), (counts, counts_p),
+                    (rows[:n_pairs], rows_p[:n_pairs])])
+    errs["K9"] = max(errs.get("K9", 0), err)
+    require(err == 0, f"K9 differs from front_meta_plain ({label}): {err}")
+    stats = {"n_wide": we - ws, "n_fit": new_ws - ws, "n_pairs": n_pairs,
+             "leftover": we - new_ws}
+    n_tiles = starts.numel() - 1
+    say(f"{label}: K9 bit-equal to front_meta_plain ({n_tiles} tiles of "
+        f"{r.cfg.tile_h} rows, window rows {tile_row0}+"
+        f"{tile_rows or r.cfg.grid_h}, budgets {wide_rows} rows / "
+        f"{wide_pairs} pairs): " + ", ".join(f"{k} {v}"
+                                             for k, v in stats.items()))
+    if not timed:
+        return stats, None
+    # the run bounds K9 reads once (each tile's 4 coarse words and first
+    # fine word, ws and we; the other fine words it never reads), each wide
+    # row's order word and 3 comb words, rmeta, pair_starts, the pair rows
+    # and the counts written once
+    n_live = min(we - ws, wide_rows)
+    n_bounds = (binsort.N_GRP + 1) * n_tiles + 2
+    n_bytes = (n_bounds + 4 * n_live + rmeta.numel() + starts.numel()
+               + n_pairs + counts.numel()) * 4
+    return stats, (k_ms, p_ms, None, bound_ms(
+        n_bytes, n_live * K9_OPS_PER_ROW + n_pairs * K9_OPS_PER_PAIR))
+
+
+def transform_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
+    """Phase 27: the vertex transform, kernel K8, against
+    ``transform_vertices_T_plain`` on the card, bit for bit: config4 subdiv
+    8 (``r8``, one object) at the static pose ``cam8`` (timed) and at the
+    fly-by's closest approach, and config5's two objects (a terrain and an
+    icosphere: the ``vert_obj`` gather) at its first camera.  Returns
+    {"K8": (kernel ms, plain ms, None, (bound ms, bound by))}."""
+    import torch
+
+    from ash_renderer_tpu_torch.benchmarks import config5_flythrough
+    from ash_renderer_tpu_torch.renderer import Renderer
+
+    timed = k8_case(r8, cam8, "config4 subdiv 8 static", errs, timed=True)
+    k8_case(r8, flyby_camera(FLYBY_FRAME, N_FRAMES),
+            "config4 subdiv 8 fly-by closest approach", errs)
+    scene5, st5, cams5 = config5_flythrough()
+    r5 = Renderer(scene5, st5, device=dev)
+    require(r5.scene.model_matrices().shape[0] == 2,
+            "config5 does not hold two objects")
+    k8_case(r5, cams5[0], "config5 frame 0", errs)
+    k8_case(r5, cams5[len(cams5) // 2], "config5 mid-path frame", errs)
+    k_ms, p_ms, _, (b_ms, by) = timed
+    say(f"[{card}] K8 at config4 subdiv 8: {k_ms:.4f} ms, "
+        f"transform_vertices_T_plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({by}), {b_ms / k_ms:.0%} of it")
+    del r5
+    torch.cuda.synchronize()
+    return {"K8": timed}
+
+
+def count_syncs(fn):
+    """(``fn()``, the synchronizing CUDA calls it made: the messages of
+    ``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message).splitlines()[0] for w in caught
+                 if "synchroniz" in str(w.message)]
+
+
+def front_meta_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
+    """Phase 28: the wide-pair expansion and range metadata, kernel K9,
+    against ``front_meta_plain`` on the card, bit for bit: config4 subdiv
+    8 (``r8``) at the fly-by's closest approach (wide pairs live), in slab
+    3 of 8 there, and on 4-row tiles there; terrain at the walk's first
+    frame (timed), and there with a small ``wide_rows`` and a small
+    ``wide_pairs`` (each cut); then one moving front's host reads (exactly
+    one), the launches of a moving frame (K8 once, K9 four times) and of a
+    cached static frame (neither).  Returns {"K9": (kernel ms, plain ms,
+    None, (bound ms, bound by))}."""
+    import dataclasses
+
+    import torch
+
+    from ash_renderer_tpu_torch import pipeline
+    from ash_renderer_tpu_torch.benchmarks import config4_terrain
+    from ash_renderer_tpu_torch.camera import orbit_path
+    from ash_renderer_tpu_torch.ops import front_meta, vertex_transform
+    from ash_renderer_tpu_torch.parallel import slab_rows
+    from ash_renderer_tpu_torch.renderer import Renderer
+    from benchmark import cells
+
+    fly = flyby_camera(FLYBY_FRAME, N_FRAMES)
+    stats = k9_case(r8, fly, "config4 subdiv 8 fly-by closest approach",
+                    errs)[0]
+    require(stats["n_pairs"] > 0, "the fly-by frame expands no wide pair")
+    rows_per = slab_rows(r8.statics, 8)
+    k9_case(r8, fly, "config4 subdiv 8 fly-by, slab 3 of 8", errs,
+            tile_row0=3 * rows_per, tile_rows=rows_per)
+    r8_4 = Renderer(r8.scene, dataclasses.replace(r8.settings,
+                                                  fused_tile_h=4), device=dev)
+    stats = k9_case(r8_4, fly, "config4 subdiv 8 fly-by, 4-row tiles",
+                    errs)[0]
+    require(stats["n_pairs"] > 0, "4-row tiles: no wide pair")
+    del r8_4
+    scene_t, st_t, _ = config4_terrain()
+    rt = Renderer(scene_t, st_t, device=dev)
+    walk = cells.path_of(cells.load()["terrain-walk"], 1, cells.DEFAULT_SEED)[0]
+    stats, timed = k9_case(rt, walk, "terrain walk frame 0", errs, timed=True)
+    n_wide = stats["n_wide"]
+    require(n_wide > 64 and stats["leftover"] == 0,
+            "terrain walk frame 0: too few wide rows, or a leftover")
+    cut_rows = k9_case(rt, walk, "terrain walk frame 0, wide_rows 64", errs,
+                       budgets=(64, st_t.wide_pairs))[0]
+    require(cut_rows["n_fit"] == 64 and cut_rows["leftover"] == n_wide - 64,
+            "wide_rows 64: the cut is not at 64 rows")
+    budget = stats["n_pairs"] // 2
+    cut_pairs = k9_case(rt, walk, f"terrain walk frame 0, wide_pairs {budget}",
+                        errs, budgets=(st_t.wide_rows, budget))[0]
+    require(0 < cut_pairs["n_fit"] < n_wide and cut_pairs["n_pairs"] <= budget,
+            f"wide_pairs {budget}: no positional cut")
+
+    # one moving front: its host reads, and the launches of its frame
+    orbit = orbit_path(N_FRAMES, radius=2.0, center=[0.0, 0.0, 2.0])[5]
+    mm_t, mvp_t, _ = front_inputs(r8, orbit)
+    _, syncs = count_syncs(lambda: pipeline.render_front(
+        r8.statics, r8.state, mm_t, mvp_t))
+    require(len(syncs) == 1, f"one moving front made {len(syncs)} host "
+            f"reads, not 1: {syncs}")
+    _, counts, _, _ = run_counted(lambda: r8.render_frame(orbit))
+    require(counts.get(vertex_transform.KERNEL, 0) == 1
+            and counts.get(front_meta.KERNEL, 0) == front_meta.N_LAUNCHES,
+            f"a moving frame's launches: {counts}")
+    route = require_route("config4 subdiv 8 orbit frame", counts, r8)
+    r8.render_frame(cam8)
+    _, counts_c, _, _ = run_counted(lambda: r8.render_frame(cam8))
+    require_route("config4 subdiv 8 cached static frame", counts_c, r8,
+                  cached=True)
+    k_ms, p_ms, _, (b_ms, by) = timed
+    say(f"[{card}] one moving front ({route}): host reads {syncs}; frame "
+        f"launches {json.dumps(counts, sort_keys=True)}; "
+        f"cached static frame {json.dumps(counts_c, sort_keys=True)}")
+    _, floor_ms = run_timed(lambda: torch.cuda._sleep(1), K9_REPS[0])
+    say(f"[{card}] K9 at the terrain walk frame ({n_wide} wide rows, "
+        f"{stats['n_pairs']} pairs): {k_ms:.4f} ms for its "
+        f"{front_meta.N_LAUNCHES} launches, front_meta_plain {p_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({by}); launch floor (torch.cuda._sleep(1)) "
+        f"{floor_ms:.4f} ms a launch")
+    del rt
+    torch.cuda.synchronize()
+    return {"K9": timed}
+
+
 # the loss of the inverse-rendering example on the card against the CPU's:
 # the forward images are bit-equal, but Adam's mean reductions sum in
 # another order on each device, so the fits drift apart by float rounding
@@ -3039,15 +3337,18 @@ def ab_decision(rows):
     return threshold, "on" if all(shade) else "off"
 
 
-def route_kernels(r):
+def route_kernels(r, cached: bool = False):
     """(the Renderer ``r``'s route as "pipeline / shade", the kernels each
     of its frames must launch, the kernels it must not launch): its
     resolved ``settings.pipeline``, and on the fused route K3F and K7
     exactly where ``pipeline.shade_mode_for`` gives its statics a shade
-    mode (the table caps included).  The Renderer packs the classic route
-    plainly, so K5 is never among them."""
+    mode (the table caps included), and the front's kernels (K8, K1, K6,
+    K2, K9) on a frame that computes its front, none on a ``cached`` one
+    (a front-cache hit).  The Renderer packs the classic route plainly, so
+    K5 is never among them."""
     from ash_renderer_tpu_torch import pipeline
 
+    from ash_renderer_tpu_torch.ops import front_meta, vertex_transform
     from ash_renderer_tpu_torch.ops import fused_kernel as fk
     from ash_renderer_tpu_torch.ops import shade_pack
 
@@ -3055,27 +3356,30 @@ def route_kernels(r):
     route = f"{st.pipeline} / {st.fused_surface_shade}"
     rasters = {fk.kernel_name(th, f) for th in fk.TILE_HEIGHTS
                for f in (False, True)}  # K3 and K3F at 8 and 4 rows
+    front = {vertex_transform.KERNEL, "K1_setup", "K6_clip_tail",
+             "K2_run_bounds", front_meta.KERNEL}
     if st.pipeline == "classic":
         return route, {"K4_raster_classic"}, {
-            "K1_setup", "K2_run_bounds", "K5_gather_rows", "K6_clip_tail",
-            shade_pack.KERNEL, *rasters}
+            "K5_gather_rows", shade_pack.KERNEL, *front, *rasters}
     s = r.state
     phase_f = pipeline.shade_mode_for(
         r.statics, s.materials, s.atlas if r.statics.has_atlas else None,
         s.light if r.statics.has_light else None) is not None
     k3 = fk.kernel_name(r.cfg.tile_h, phase_f)
     shade_k = {shade_pack.KERNEL}
-    return route, {"K1_setup", "K6_clip_tail", "K2_run_bounds", k3,
-                   *(shade_k if phase_f else ())}, {
-        "K4_raster_classic", "K5_gather_rows", *(rasters - {k3}),
-        *(() if phase_f else shade_k)}
+    must = {k3, *(shade_k if phase_f else ())}
+    must_not = {"K4_raster_classic", "K5_gather_rows", *(rasters - {k3}),
+                *(() if phase_f else shade_k)}
+    return route, must | (set() if cached else front), must_not | (
+        front if cached else set())
 
 
-def require_route(label: str, counts: dict, r) -> str:
+def require_route(label: str, counts: dict, r, cached: bool = False) -> str:
     """Fail unless ``counts`` (one run's launches) holds every kernel of
-    the Renderer ``r``'s route (``route_kernels``) and none it excludes;
-    returns the route as "pipeline / shade"."""
-    route, must, must_not = route_kernels(r)
+    the Renderer ``r``'s route (``route_kernels``, ``cached`` for runs of
+    front-cache hits) and none it excludes; returns the route as
+    "pipeline / shade"."""
+    route, must, must_not = route_kernels(r, cached)
     require(all(counts.get(k, 0) > 0 for k in must)
             and not any(counts.get(k, 0) for k in must_not),
             f"{label}: launches {counts} are not route {route}'s")
@@ -3254,6 +3558,10 @@ def main(argv=None) -> int:
     ap.add_argument("--shade-pack", action="store_true",
                     help="run phases 1, 2 and 26 alone (shade + pack, K7); "
                     "prints no kernels or ok line")
+    ap.add_argument("--front-glue", action="store_true",
+                    help="run phases 1, 2, 27 and 28 alone (the vertex "
+                    "transform K8, the expansion and range meta K9); prints "
+                    "no kernels or ok line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
@@ -3325,6 +3633,13 @@ def main(argv=None) -> int:
         with Phase("26 shade + pack (K7) vs plain"):
             return shade_pack_checks(dev, card, errs, r8, cam8)
 
+    def front_glue_phases(errs, r8, cam8):
+        with Phase("27 the vertex transform (K8) vs plain"):
+            timing = transform_checks(dev, card, errs, r8, cam8)
+        with Phase("28 the expansion and range meta (K9) vs plain"):
+            timing.update(front_meta_checks(dev, card, errs, r8, cam8))
+        return timing
+
     if args.clip_tail:
         scene8, st8, _ = config4_million_tri(8)
         clip_tail_phase({}, Renderer(scene8, st8, device=dev))
@@ -3336,6 +3651,12 @@ def main(argv=None) -> int:
         shade_pack_phase({}, Renderer(scene8, st8, device=dev), cams8[0])
         say(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2 and "
             "26 alone)")
+        return 0
+    if args.front_glue:
+        scene8, st8, cams8 = config4_million_tri(8)
+        front_glue_phases({}, Renderer(scene8, st8, device=dev), cams8[0])
+        say(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2, 27 "
+            "and 28 alone)")
         return 0
     if args.tile_h4:
         heads = []
@@ -3673,6 +3994,7 @@ def main(argv=None) -> int:
     timing.update(timing_t4)
     timing.update(clip_tail_phase(errs, r8))
     timing.update(shade_pack_phase(errs, r8, cams8[0]))
+    timing.update(front_glue_phases(errs, r8, cams8[0]))
 
     meta = {
         "K1": ("K1_setup", "ash_renderer_tpu_torch/csrc/setup.cu",
@@ -3701,6 +4023,13 @@ def main(argv=None) -> int:
         # kernel is XLA glue (_shade_from_planes, phase F branch)
         "K7": ("K7_shade_pack", "ash_renderer_tpu_torch/csrc/shade_pack.cu",
                "none (ash_renderer_tpu/pipeline.py:239, XLA glue)", counts),
+        # no Pallas kernel: the reference's vertex transform and its
+        # expansion + range meta are XLA glue (_fstage_transform,
+        # sort_expand_table)
+        "K8": ("K8_vertex_transform", "ash_renderer_tpu_torch/csrc/transform.cu",
+               "none (ash_renderer_tpu/pipeline.py:413, XLA glue)", counts),
+        "K9": ("K9_front_meta", "ash_renderer_tpu_torch/csrc/front_meta.cu",
+               "none (ash_renderer_tpu/pipeline.py:458, XLA glue)", counts),
     }
     kernels = []
     for k, (name, src, rep, n) in meta.items():
