@@ -34,7 +34,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-HEADERS = ("specmath.cuh", "binsort.cuh")
+HEADERS = ("specmath.cuh", "binsort.cuh", "coop.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -81,15 +81,11 @@ KERNELS = {
         "ash_rasterize_visibility": [_P] * 7 + [_I] * 4 + [_P],
     },
     "clip_tail.cu": {
-        # flags, n_tris, counts, stream
-        "ash_clip_count": [_P, _I, _P, _P],
-        # flags, n_tris, counts, n_chunks, budget, sel, counters, stream
-        "ash_clip_select": [_P, _I, _P, _I, _I, _P, _P, _P],
-        # tblT, tri_v, tri_mat, sel, comb_tail, keys, counters, n_verts,
-        # n_tris, budget, width, height, min_c, max_cx, max_cy, ss, gx, gy,
-        # row0, py_lo, py_hi, tile_h, grid_w, n_tiles (the key window),
-        # stream
-        "ash_clip_fan": [_P] * 7 + [_I] * 9 + [_F, _F] + [_I] * 6 + [_P],
+        # flags, tblT, tri_v, tri_mat, scratch (counters, per-chunk counts,
+        # sel), comb_tail, keys, n_verts, n_tris, budget, width, height,
+        # min_c, max_cx, max_cy, ss, gx, gy, row0, py_lo, py_hi, tile_h,
+        # grid_w, n_tiles (the key window), stream
+        "ash_clip_tail": [_P] * 7 + [_I] * 9 + [_F, _F] + [_I] * 6 + [_P],
     },
     "shade_pack.cu": {
         # planes, quads (or NULL), n_quads, light colour (or NULL), sRGB
@@ -104,10 +100,11 @@ KERNELS = {
         "ash_vertex_transform": [_P] * 8 + [_I] * 2 + [_P],
     },
     "front_meta.cu": {
-        # comb, order, bounds, rects, wrow, tile_cnt, meta, pair_rows,
-        # pair_starts, rmeta, n_tiles, grid_w, tile_h, row0, py_lo, py_hi,
-        # width, height, ss, min_c, wide_rows, wide_pairs, s_rows, stream
-        "ash_front_meta": [_P] * 10 + [_I] * 13 + [_P],
+        # comb, order, bounds, rects, wrow, wrec, tile_cnt, row_cnt,
+        # chunk_sums, work, meta, pair_rows, pair_starts, rmeta, rec_sorted,
+        # rec_ext, n_tiles, grid_w, tile_h, row0, py_lo, py_hi, width,
+        # height, ss, min_c, wide_rows, wide_pairs, s_rows, stream
+        "ash_front_meta": [_P] * 16 + [_I] * 13 + [_P],
     },
     "gather.cu": {
         # tbl, local_tri, out, n_tris, n_cols, stream

@@ -13,7 +13,9 @@
 // window's own rows.
 //
 // Phase V streams the tile's 7 ranges (rmeta) as one
-// sequence, CHUNK records at a time.  Each record is staged once in shared
+// sequence, CHUNK records at a time: the sorted tables hold 8-word records
+// (ops/tritables REC_COLS: columns 0-5 and the id of a comb row, 32 bytes,
+// two aligned 16-byte loads), which kernel K9 writes.  Each record is staged once in shared
 // memory: its three edge values at the tile's first sample with their
 // per-column and per-row steps (a*ss, b*ss), its depths and id, and a
 // 32-bit mask of the warps its pixel box touches.  The pixel box is the
@@ -406,11 +408,12 @@ raster_kernel(const int* __restrict__ rmeta, const int* __restrict__ tbl,
       int r = 0;
 #pragma unroll
       for (int i = 1; i < N_RANGES; ++i) r += k >= range_lo[i];
-      const int* row_p = (r == EXT_RANGE ? ext : tbl) +
-                         (size_t)(range_start[r] + k - range_lo[r]) * TBL_COLS;
-      const int4 c = *reinterpret_cast<const int4*>(row_p);  // corners, zq01
-      const int2 zi = *reinterpret_cast<const int2*>(row_p + 4);  // z2, inv_area
-      const int id = row_p[ID_COL];
+      const int4* rec = reinterpret_cast<const int4*>(
+          (r == EXT_RANGE ? ext : tbl) +
+          (size_t)(range_start[r] + k - range_lo[r]) * REC_WORDS);
+      const int4 c = rec[0];  // corners, zq01
+      const int4 zi = rec[1];  // z2, inv_area, id (REC_ID), 0
+      const int id = zi.z;
       const int x0 = (c.x & 0xFFFF) + min_c, y0 = ((c.x >> 16) & 0xFFFF) + min_c;
       const int x1 = (c.y & 0xFFFF) + min_c, y1 = ((c.y >> 16) & 0xFFFF) + min_c;
       const int x2 = (c.z & 0xFFFF) + min_c, y2 = ((c.z >> 16) & 0xFFFF) + min_c;

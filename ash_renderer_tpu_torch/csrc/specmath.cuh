@@ -25,6 +25,10 @@ constexpr int N_GRP = 4;
 constexpr int KEYS_PER_TILE = N_GRP + N_FINE;
 constexpr int TBL_COLS = 128;
 constexpr int ID_COL = 46;
+// the record K3 streams of a comb row (ops/tritables.REC_COLS): columns
+// 0-5, then ID_COL at word REC_ID, then a zero word; 32 bytes
+constexpr int REC_WORDS = 8;
+constexpr int REC_ID = 6;
 
 __device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }

@@ -13,10 +13,11 @@ which XLA fuses; in eager torch the same chain is ~1,200 launches over
 the whole ``clip_budget`` and two host reads (the budgeted select's
 ``nonzero`` and the candidate count), which stall the host mid-front.
 
-What bounds it on the card: the launch floor.  It moves ~20 MB (the flags
-read, the selected corners' table rows, 7 x ``clip_budget`` comb rows of
-512 bytes and their keys), a few microseconds at 3.35 TB/s, so the three
-launches are the cost:
+What bounds it on the card: the bytes it moves, ~20 MB (the flags read,
+the selected corners' table rows, 7 x ``clip_budget`` comb rows of 512
+bytes and their keys), a few microseconds at 3.35 TB/s, which three launch
+floors already exceed.  So it is one cooperative launch, its grid sized
+from the occupancy, in three passes split by grid syncs:
 
 1. count: the clip, valid and fast flags of each chunk of ``CHUNK`` rows
    (warp ballots);
@@ -41,9 +42,10 @@ from .. import _build
 from . import binsort, geometry, setup_kernel, tritables
 
 KERNEL = "K6_clip_tail"
-# the counters, in the order of the kernels' counter buffer
+# the counters, in the order of the kernel's counter buffer
 COUNTERS = ("n_clipped", "clip_overflow", "n_valid", "n_fast")
-CHUNK = 4096  # setup rows per block of the count and select kernels
+N_LAUNCHES = 1
+CHUNK = 4096  # setup rows a chunk of the count and select passes
 N_FLAG_COUNTS = 3  # per chunk: clip candidates, valid rows, fast rows
 
 
@@ -61,7 +63,7 @@ def clip_tail(tblT, tri_v, tri_mat, flags, comb, cfg, clip_budget: int,
     clip_budget, 128) int32.  Returns (keys (7 * clip_budget,) int32,
     {name: 0-dim int32 tensor on the device} for ``COUNTERS``; n_valid
     counts the valid main and tail rows).  CPU tensors take the plain
-    version; CUDA tensors launch the kernels."""
+    version; CUDA tensors launch the kernel."""
     dev = flags.device
     if dev.type == "cpu":
         return clip_tail_plain(tblT, tri_v, tri_mat, flags, comb, cfg,
@@ -82,28 +84,22 @@ def clip_tail(tblT, tri_v, tri_mat, flags, comb, cfg, clip_budget: int,
                 or tuple(x.shape) != shape or not x.is_contiguous()):
             raise ValueError(f"clip_tail: bad {name} {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
+    # one allocation: the counters, the per-chunk counts, sel
     n_chunks = -(-t // CHUNK)
     scratch = torch.empty(len(COUNTERS) + N_FLAG_COUNTS * n_chunks
                           + clip_budget, dtype=torch.int32, device=dev)
     counters = scratch[: len(COUNTERS)]
-    counts = scratch[len(COUNTERS) : len(COUNTERS) + N_FLAG_COUNTS * n_chunks]
-    sel = scratch[len(COUNTERS) + N_FLAG_COUNTS * n_chunks :]
     keys = torch.empty(n_tail, dtype=torch.int32, device=dev)
     tile_rows, py_lo, py_hi = binsort.window_rows(cfg, tile_row0, tile_rows)
     gx, gy = setup_kernel.guard_factors(cfg)
-    _build.launch(KERNEL, "ash_clip_count", dev, flags.data_ptr(), t,
-                  counts.data_ptr())
-    _build.launch(KERNEL, "ash_clip_select", dev, flags.data_ptr(), t,
-                  counts.data_ptr(), n_chunks, clip_budget, sel.data_ptr(),
-                  counters.data_ptr())
     _build.launch(
-        KERNEL, "ash_clip_fan", dev,
-        tblT.data_ptr(), tri_v.data_ptr(), tri_mat.data_ptr(), sel.data_ptr(),
-        comb[t:].data_ptr(), keys.data_ptr(), counters.data_ptr(),
-        n_verts, t, clip_budget, cfg.width, cfg.height, cfg.min_coord,
-        cfg.max_coord_x, cfg.max_coord_y, cfg.subpixel_scale,
+        KERNEL, "ash_clip_tail", dev,
+        flags.data_ptr(), tblT.data_ptr(), tri_v.data_ptr(),
+        tri_mat.data_ptr(), scratch.data_ptr(), comb[t:].data_ptr(),
+        keys.data_ptr(), n_verts, t, clip_budget, cfg.width, cfg.height,
+        cfg.min_coord, cfg.max_coord_x, cfg.max_coord_y, cfg.subpixel_scale,
         float(gx), float(gy), tile_row0, py_lo, py_hi, cfg.tile_h,
-        cfg.grid_w, tile_rows * cfg.grid_w,
+        cfg.grid_w, tile_rows * cfg.grid_w, count=N_LAUNCHES,
     )
     return keys, dict(zip(COUNTERS, counters.unbind()))
 

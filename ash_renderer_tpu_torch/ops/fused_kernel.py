@@ -13,8 +13,9 @@ inside the kernel).  The launch counts at 4 rows are kept apart
 
 One CUDA block per tile.  The block streams the tile's 7 ranges from
 ``rmeta`` (own, above, left, diag, wide and own-fine read ``tbl_sorted``;
-the wide-pair range reads ``tbl_ext``) as one sequence, staging a chunk of
-records in shared memory, each with its pixel box (``slot_pixel_boxes``:
+the wide-pair range reads ``tbl_ext``; both hold 8-word records,
+``tritables.REC_COLS``) as one sequence, staging a chunk of records in
+shared memory, each with its pixel box (``slot_pixel_boxes``:
 the samples inside its vertex bbox, clipped to the tile and, for fine
 rows, to their own 16-px window, as the reference's packed fine path
 does) as a mask of the warps the box touches.  Each warp owns an 8-column
@@ -64,7 +65,7 @@ from .. import specmath as sm
 from .binsort import (FINE_W, KEYS_PER_TILE, N_FINE, N_GRP, crop_window,
                       window_rows)
 from .shade import interp_fields_stacked, shade_consts_layout, surface_prelight
-from .tritables import ID_COL, TBL_COLS, unpack_coord_planes
+from .tritables import REC_ID, REC_WORDS, TBL_COLS, unpack_coord_planes
 
 N_RANGES = 7  # own, above, left, diag, wide, wide-pairs(ext), own-fine
 EXT_RANGE = 5
@@ -173,7 +174,10 @@ def rasterize_distribute(rmeta, tbl_sorted, tbl_ext, comb, cfg,
     grid by default), and with ``shade_mode`` set
     (``pipeline.shade_mode_for``) the surface half of shading from
     ``consts`` (``shade.pack_shade_consts``), on tiles of ``cfg.tile_h``
-    (4 or 8) x 128.  Returns (vis_d, vis_t) and planes (n_tiles, 24,
+    (4 or 8) x 128.  ``tbl_sorted`` and ``tbl_ext``: (N, 8) int32 records
+    (``tritables.REC_COLS``) in streaming order and of the wide pairs;
+    ``comb``: the (S, 128) unsorted table phase D reads the winners from.
+    Returns (vis_d, vis_t) and planes (n_tiles, 24,
     tile_h * 128) int32; the vis planes are cropped to
     (height, width) for the whole grid and to the width only for a window
     given by ``tile_rows``.  CPU tensors take the plain version; CUDA
@@ -192,8 +196,8 @@ def rasterize_distribute(rmeta, tbl_sorted, tbl_ext, comb, cfg,
     _check("rmeta", rmeta, dev, 1)
     if rmeta.shape[0] != n_tiles * N_RANGES * RMETA_COLS:
         raise ValueError("rasterize_distribute: rmeta does not fit the grid")
-    _check("tbl_sorted", tbl_sorted, dev, 2, TBL_COLS)
-    _check("tbl_ext", tbl_ext, dev, 2, TBL_COLS)
+    _check("tbl_sorted", tbl_sorted, dev, 2, REC_WORDS)
+    _check("tbl_ext", tbl_ext, dev, 2, REC_WORDS)
     _check("comb", comb, dev, 2, TBL_COLS)
     hp, wp = tile_rows * cfg.tile_h, cfg.grid_w * TILE_W
     vis_d = torch.empty((hp, wp), dtype=torch.int32, device=dev)
@@ -310,7 +314,6 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
     col, row = (pix % TILE_W).to(i32), (pix // TILE_W).to(i32)
     bg_key = (sm.DEPTH_MAX << 32) | (0x7FFFFFFF - sm.BG_TRI)
     best = torch.full((n_tiles * n_pix,), bg_key, dtype=i64, device=dev)
-    rec_cols = torch.tensor([0, 1, 2, 3, 4, 5, ID_COL], device=dev)
 
     def unpack16(p):
         return (p & 0xFFFF) + min_c, ((p >> 16) & 0xFFFF) + min_c
@@ -318,9 +321,9 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
     for c0 in range(0, tile.shape[0], PLAIN_CHUNK):
         t_c, r_c, p_c = (v[c0 : c0 + PLAIN_CHUNK] for v in (tile, rng, pos))
         ext = r_c == EXT_RANGE
-        rec = torch.empty((t_c.shape[0], 7), dtype=i32, device=dev)
-        rec[ext] = tbl_ext[p_c[ext]][:, rec_cols]
-        rec[~ext] = tbl_sorted[p_c[~ext]][:, rec_cols]
+        rec = torch.empty((t_c.shape[0], REC_WORDS), dtype=i32, device=dev)
+        rec[ext] = tbl_ext[p_c[ext]]
+        rec[~ext] = tbl_sorted[p_c[~ext]]
         x0, y0 = unpack16(rec[:, 0:1])
         x1, y1 = unpack16(rec[:, 1:2])
         x2, y2 = unpack16(rec[:, 2:3])
@@ -328,7 +331,7 @@ def rasterize_distribute_plain(rmeta, tbl_sorted, tbl_ext, comb, cfg,
         zq1 = (rec[:, 3:4] >> 16) & 0xFFFF
         zq2 = rec[:, 4:5]
         inv_area = sm.bitcast_f32(rec[:, 5:6])
-        ids = rec[:, 6:7]
+        ids = rec[:, REC_ID:REC_ID + 1]
         tx = (t_c % gw).to(i32)[:, None]
         ty = (t_c // gw + tile_row0).to(i32)[:, None]
         sx, sy = sm.pixel_sample_coords(tx * TILE_W + col, ty * th + row, ss)

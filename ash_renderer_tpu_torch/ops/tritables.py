@@ -11,9 +11,11 @@ Row layout, (N, 128) int32, one row per setup slot:
     46   the row's own id (its index in the unsorted table)
     47-127  zero
 
-Phase V of the raster kernel reads cols 0-5 and 46 of the sorted tables;
-phase D reads cols 0-47 of a winner's row straight from the unsorted table,
-whose row index is the triangle id.
+Phase V of the raster kernel reads cols 0-5 and 46 of a row, so the
+sorted tables it streams hold records of ``REC_WORDS`` words (``REC_COLS``,
+then a zero word: 32 bytes, two 16-byte loads) instead of rows; phase D
+reads cols 0-47 of a winner's row straight from the unsorted table, whose
+row index is the triangle id.
 
 ``build_comb_table`` assembles the whole table from a ``TriangleSetup``
 (the non-meshlet fused pipeline); the meshlet pipeline's setup kernel K1
@@ -31,6 +33,12 @@ from . import meshlet_gather
 COMB_FIELDS = 46
 TBL_COLS = 128
 ID_COL = 46
+# the record of a row that the raster kernel streams: its columns, then a
+# zero word (csrc/specmath.cuh REC_WORDS, REC_ID); the id word is written
+# from the row's index, which a comb table holds at ID_COL
+REC_COLS = (0, 1, 2, 3, 4, 5, ID_COL)
+REC_WORDS = 8
+REC_ID = REC_COLS.index(ID_COL)  # the record's id word
 
 
 _COMB_SETUP_FIELDS = (
@@ -102,9 +110,19 @@ def unpack_coord_planes(packed, cfg):
     return (packed & 0xFFFF) - off, ((packed >> 16) & 0xFFFF) - off
 
 
-def sorted_table(comb, order, live_end: int):
-    """The live prefix of the comb table in streaming order: rows
-    ``order[:live_end]``.  The raster kernel only streams positions before
-    the dead run, so the prefix is all it reads (the reference's budget
-    tiers only capped TPU program size)."""
-    return comb.index_select(0, order[:live_end])
+def sorted_table(comb, rows):
+    """The records of comb rows ``rows`` in that order: (len(rows),
+    REC_WORDS) int32, ``REC_COLS`` then a zero word, the id word being
+    the row's index (which is the row's ``ID_COL`` word: every comb table
+    holds each row's own index there, and the raster kernel's phase D
+    reads the winner's row by it).  With ``rows`` the
+    live prefix of the sorted order (``order[:live_end]``) it is the table
+    the raster kernel streams, which only reads positions before the dead
+    run (the reference's budget tiers only capped TPU program size); with
+    the wide pairs' rows it is the extension table.  Kernel K9
+    (``front_meta.front_meta``) writes both on a card."""
+    out = torch.zeros((rows.shape[0], REC_WORDS), dtype=torch.int32,
+                      device=comb.device)
+    out[:, :REC_ID] = comb[rows.long(), :REC_ID]  # REC_COLS before the id
+    out[:, REC_ID] = rows
+    return out

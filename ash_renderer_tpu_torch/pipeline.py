@@ -15,8 +15,8 @@ Stages, each a plain call on tensors of one device:
 2. triangle setup, kernel K1 (``setup_kernel.triangle_setup``);
 3. clip tail (``_clip_tail_into``, kernel K6);
 4. key sort + run bounds, kernel K2 (``binsort.sort_and_bounds``);
-5. wide-pair expansion and range metadata (kernel K9), then the table
-   gathers sized by the front's one host read (``expand_table``);
+5. wide-pair expansion, range metadata and the sorted tables' records
+   (kernel K9, ``expand_table``), with no host read;
 6. raster + distribute, kernel K3 (``fused_kernel.rasterize_distribute``),
    or K3F, which also runs the surface half of shading (phase F) when
    ``shade_mode_for`` gives a shade mode;
@@ -81,26 +81,16 @@ def _clip_tail_into(statics, tblT, tri_v, tri_mat, flags, comb,
 
 def expand_table(statics, comb, order, bounds, tile_row0: int = 0,
                  tile_rows=None):
-    """Wide-pair expansion + range metadata (``front_meta.front_meta``,
-    kernel K9 on a card) + the live-prefix table gathers on the sorted order
-    of the tile-row window (the whole grid by default).  The counts K9
-    leaves on the device are read here, once: the front's one host read,
-    which sizes the two gathers.  Returns (rmeta, tbl_sorted, tbl_ext,
-    sstats)."""
+    """Wide-pair expansion + range metadata + the sorted tables' records
+    (``front_meta.front_meta``, kernel K9 on a card) on the sorted order of
+    the tile-row window (the whole grid by default).  Nothing is read back
+    to the host on a card: the counters are 0-dim device tensors, read
+    after the frame.  Returns (rmeta, tbl_sorted, tbl_ext, sstats)."""
     st = statics.settings
-    pair_rows, _, rmeta, counts = front_meta.front_meta(
+    _, _, rmeta, counts, tbl_sorted, tbl_ext = front_meta.front_meta(
         comb, order, bounds, statics.cfg, st.wide_rows, st.wide_pairs,
         tile_row0, tile_rows)
-    ws, live_end, new_ws, n_pairs = counts.tolist()
-    tbl_sorted = tritables.sorted_table(comb, order, live_end)
-    tbl_ext = tritables.sorted_table(comb, pair_rows, n_pairs)
-    sstats = {
-        "n_wide": live_end - ws,
-        "wide_pairs_n": n_pairs,
-        "wide_leftover": live_end - new_ws,
-        "live_rows": live_end,
-    }
-    return rmeta, tbl_sorted, tbl_ext, sstats
+    return rmeta, tbl_sorted, tbl_ext, front_meta.front_stats(counts)
 
 
 def _no_stage(name):

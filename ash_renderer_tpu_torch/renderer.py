@@ -265,7 +265,9 @@ class Renderer:
         On a CUDA device, build (where no library is built yet) and load
         the kernel libraries this renderer's route launches: K4's on the
         classic route (plain-packed, so no K5), the front's (K8, K1, K6,
-        K2, K9) and K3 / K3F's on the fused one, in row slabs too.  One nvcc process per source,
+        K2, K9), K3 / K3F's and K7's on the fused one, in row slabs too
+        (K7 follows K3F, which every fused frame on a card takes unless
+        "off" is named or the tables exceed its caps).  One nvcc process per source,
         all started together, or one after another with ``parallel=False``.
         A CPU renderer builds nothing: its wrappers run the plain versions.
         Then, with ``execute``, render one frame at the default ``Camera()``
@@ -286,7 +288,8 @@ class Renderer:
             sources = (("raster_classic.cu",)
                        if self.settings.pipeline == "classic"
                        else ("transform.cu", "setup.cu", "clip_tail.cu",
-                             "bincount.cu", "front_meta.cu", "raster.cu"))
+                             "bincount.cu", "front_meta.cu", "raster.cu",
+                             "shade_pack.cu"))
             for group in ((sources,) if parallel
                           else tuple((s,) for s in sources)):
                 _build.build(group)

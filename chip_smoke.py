@@ -13,8 +13,8 @@ lines and seconds; any failure raises and the exit code is non-zero):
    K3's and K3F's ``raster_kernel`` (at 8 and at 4 rows), K4's
    ``raster_classic_kernel``, K2's
    ``run_bounds_kernel``, K5's ``gather_tile_kernel``, K7's
-   ``shade_pack_kernel``, K8's ``transform_kernel`` or K9's four kernels
-   a stack frame or spills), and hold
+   ``shade_pack_kernel``, K8's ``transform_kernel`` or K9's
+   ``front_meta_kernel`` a stack frame or spills), and hold
    ``native.build_meshlets`` equal to the Python meshlets;
 3. each kernel against its plain torch version on the card, on config4 at
    subdiv 5 (20,480 triangles, 1080p), at the static camera and at a
@@ -29,7 +29,8 @@ lines and seconds; any failure raises and the exit code is non-zero):
    moved -> static, whose last frame must equal the first;
 5. the kernel launch counts of phase 4: the subdiv-5 frame's those of
    "off", the headline's those of the route "auto" takes on the card
-   (``route_kernels``), each > 0, and none of another route;
+   (``route_kernels``), each > 0, and none of another route; K6 and K9
+   once a front (as often as K8);
 6. CUDA-event timings at subdiv 8: frame ms (static with the front cache
    off, static cached, orbit, fly-by) and ms per stage;
 7. each kernel against its plain version at the headline shapes (subdiv
@@ -214,17 +215,18 @@ lines and seconds; any failure raises and the exit code is non-zero):
    K3F at 8 and at 4 rows on the same subdiv-8 frame, CUDA-event ms in
    turns (8, 4, 4, 8);
 25. the clip tail, kernel K6 (``ops/clip_tail.clip_tail``; ``--clip-tail``
-   runs phases 1, 2 and 25 alone): its three launches against
+   runs phases 1, 2 and 25 alone): its one cooperative launch against
    ``clip_tail_plain`` on the card, bit for bit (the tail comb rows as
    int32 words, the keys and the counters), on K1's outputs for terrain
    at its golden pose (no clip) and at the terrain walk's first frame
    (clips; timed with CUDA events beside the plain chain, with its bound),
-   that frame with a 16-triangle budget (overflow) and at a middle and
-   the last of 8 row slabs' windows, and config4 subdiv 8 at the fly-by's
+   that frame with a 16- and a 17-triangle budget (overflow; 17 is no
+   multiple of the kernel's 16 slots a block) and at a middle and the
+   last of 8 row slabs' windows, and config4 subdiv 8 at the fly-by's
    closest approach and at an orbit frame that clips nothing; the
-   kernels' call runs under ``torch.cuda.set_sync_debug_mode("error")``
+   kernel's call runs under ``torch.cuda.set_sync_debug_mode("error")``
    (no host read); one terrain front, every plain version raising,
-   launches K6 at most 3 times;
+   launches K6 once;
 26. shade + pack, kernel K7 (``ops/shade_pack.shade_pack``;
    ``--shade-pack`` runs phases 1, 2 and 26 alone): its one launch against
    ``shade_pack_plain`` on the card, bit for bit (the RGBA8 frame), on
@@ -247,19 +249,24 @@ lines and seconds; any failure raises and the exit code is non-zero):
    the static pose (timed with CUDA events beside the plain chain, with
    its bound) and the fly-by's closest approach, and on config5's two
    objects (the ``vert_obj`` gather) at two frames;
-28. the wide-pair expansion and range metadata, kernel K9
-   (``ops/front_meta.front_meta``): its four launches against
-   ``front_meta_plain`` on the card, bit for bit (pair_starts, rmeta, the
-   counts [ws, we, new_ws, n_pairs] and the first n_pairs pair rows),
-   under ``torch.cuda.set_sync_debug_mode("error")``, on config4 subdiv 8
-   at the fly-by's closest approach (wide pairs live), in slab 3 of 8 and
+28. the wide-pair expansion, range metadata and sorted-table records,
+   kernel K9 (``ops/front_meta.front_meta``): its one cooperative launch
+   against ``front_meta_plain`` on the card, bit for bit (pair_starts,
+   rmeta, the counts, the first n_pairs pair rows and the records of the
+   live prefixes, ``tbl_sorted[:we]`` and ``tbl_ext[:n_pairs]``), under
+   ``torch.cuda.set_sync_debug_mode("error")``, on config4 subdiv 8 at
+   the fly-by's closest approach (wide pairs live), in slab 3 of 8 and
    on 4-row tiles there, on terrain at the walk's first frame (timed,
-   beside the launch floor) and there with ``wide_rows`` 64 and with half
-   its pairs as ``wide_pairs`` (each cut); one moving front makes exactly
-   one host read (``set_sync_debug_mode("warn")``); a moving frame
-   launches K8 once and K9 four times, a cached static frame neither
-   (``route_kernels``).  Every frame that computes a fused front launches
-   K8 and K9; the fallback's front (phase 14) launches K9, not K8.
+   beside the launch floor and the two ``index_select`` gathers of whole
+   rows the front ran before, on the same inputs) and there with
+   ``wide_rows`` 64 and with half its pairs as ``wide_pairs`` (each cut);
+   one moving front makes no host read (``set_sync_debug_mode("warn")``),
+   and one moving fused frame and one 8-slab frame run under
+   ``set_sync_debug_mode("error")``, each equal to the frame of the same
+   camera through ``Renderer``; a moving frame launches K8 and K9 once, a
+   cached static frame neither (``route_kernels``).  Every frame that
+   computes a fused front launches K8 and K9; the fallback's front (phase
+   14) launches K9, not K8.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -336,15 +343,13 @@ NO_FRAME_KERNELS = (("raster.cu", "raster_kernel", 4),
                     ("gather.cu", "gather_tile_kernel", 3),
                     ("shade_pack.cu", "shade_pack_kernel", 1),
                     ("transform.cu", "transform_kernel", 1),
-                    ("front_meta.cu", "rows_kernel", 1),
-                    ("front_meta.cu", "tile_row_kernel", 2),
-                    ("front_meta.cu", "scan_kernel", 1))
+                    ("front_meta.cu", "front_meta_kernel", 1))
 
 
 def check_frames(logs: dict) -> None:
     """ptxas's report: every kernel of ``NO_FRAME_KERNELS`` (K3 and K3F at
-    8 and 4 rows, K4, K2, K5, K7, K8, K9's four) must have no stack frame
-    and no spills."""
+    8 and 4 rows, K4, K2, K5, K7, K8, K9) must have no stack frame and no
+    spills."""
     import re
 
     for src, kernel, want in NO_FRAME_KERNELS:
@@ -2190,7 +2195,7 @@ def tile_h4_checks(dev, card: str, errs: dict, head5, head8, head3, r8_8):
 # x 12 polygon slots x 16 channels x ~6 (intersection and placement), then
 # 7 fan triangles of ~150 (3 snaps, the area, recip_spec, the key)
 K6_OPS_PER_CLIP = 6 * 12 * 16 * 6 + 7 * 150
-K6_REPS = (20, 3)  # CUDA-event repetitions (kernels, plain chain)
+K6_REPS = (20, 3)  # CUDA-event repetitions (kernel, plain chain)
 
 
 def clip_tail_case(r, cam, label: str, errs: dict, budget=None,
@@ -2199,8 +2204,8 @@ def clip_tail_case(r, cam, label: str, errs: dict, budget=None,
     inputs renderer ``r``'s front gives for camera ``cam`` (K1's comb and
     flags), with ``budget`` (the renderer's by default) and the tile-row
     window: the tail comb rows as int32 words, the keys and the counters,
-    bit for bit; the main rows untouched.  The kernels' call runs under
-    ``torch.cuda.set_sync_debug_mode("error")``, so a host read on their
+    bit for bit; the main rows untouched.  The kernel's call runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host read on its
     path raises.  Returns (the counters as ints, with ``timed`` (kernel
     ms, plain ms, None, (bound ms, bound by)) else None)."""
     import torch
@@ -2250,16 +2255,18 @@ def clip_tail_case(r, cam, label: str, errs: dict, budget=None,
 def clip_tail_checks(dev, card: str, errs: dict, r8) -> dict:
     """Phase 25: the clip tail, kernel K6, against ``clip_tail_plain`` on
     the card, bit for bit: terrain at its golden pose (no clip) and at the
-    walk's first frame (clips; timed), the walk frame with a 16-triangle
-    budget (overflow) and in a middle and the last of 8 row slabs, config4
+    walk's first frame (clips; timed), the walk frame with a 16- and a
+    17-triangle budget (overflow) and in a middle and the last of 8 row
+    slabs, config4
     subdiv 8 (``r8``) at the fly-by's closest approach and at an orbit
     frame that clips nothing; then the launches of one front.  Returns
     {"K6": (kernel ms, plain ms, None, (bound ms, bound by))}."""
     import torch
 
-    from ash_renderer_tpu_torch import _build, pipeline
+    from ash_renderer_tpu_torch import pipeline
     from ash_renderer_tpu_torch.benchmarks import config4_terrain
     from ash_renderer_tpu_torch.camera import orbit_path
+    from ash_renderer_tpu_torch.ops import clip_tail
     from ash_renderer_tpu_torch.parallel import slab_rows
     from ash_renderer_tpu_torch.renderer import Renderer
     from benchmark import cells
@@ -2273,10 +2280,13 @@ def clip_tail_checks(dev, card: str, errs: dict, r8) -> dict:
     require(stats["n_clipped"] > 16 and stats["clip_overflow"] == 0,
             "terrain walk frame 0 clips too little or overflows")
     n_clipped = stats["n_clipped"]
-    stats = clip_tail_case(rt, walk, "terrain walk frame 0, budget 16", errs,
-                           budget=16)[0]
-    require(stats["clip_overflow"] == n_clipped - 16,
-            "budget 16: the overflow is not the candidates past the budget")
+    for budget in (16, 17):  # 17: the last group of 16 slots is partial
+        stats = clip_tail_case(rt, walk,
+                               f"terrain walk frame 0, budget {budget}", errs,
+                               budget=budget)[0]
+        require(stats["clip_overflow"] == n_clipped - budget,
+                f"budget {budget}: the overflow is not the candidates past "
+                "the budget")
     rows_per = slab_rows(rt.statics, 8)
     for i in (3, 7):
         clip_tail_case(rt, walk, f"terrain walk frame 0, slab {i} of 8", errs,
@@ -2292,13 +2302,15 @@ def clip_tail_checks(dev, card: str, errs: dict, r8) -> dict:
     mm_t, mvp_t, _ = front_inputs(rt, walk)
     _, counts, _, _ = run_counted(lambda: pipeline.render_front(
         rt.statics, rt.state, mm_t, mvp_t))
-    n = counts.get("K6_clip_tail", 0)
-    require(0 < n <= 3, f"K6 launched {n} times in one front, not 1-3")
+    n = counts.get(clip_tail.KERNEL, 0)
+    require(n == clip_tail.N_LAUNCHES,
+            f"K6 launched {n} times in one front, not once")
     k_ms, p_ms, _, (b_ms, by) = timed
     say(f"[{card}] K6 at the terrain walk frame ({n_clipped} clipped, budget "
-        f"{rt.settings.clip_budget}): {k_ms:.4f} ms for its {n} launches, "
-        f"clip_tail_plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); "
-        f"launches of one front: {json.dumps(counts, sort_keys=True)}")
+        f"{rt.settings.clip_budget}): {k_ms:.4f} ms for its one launch, "
+        f"clip_tail_plain {p_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({by}), {b_ms / k_ms:.0%} of it; launches of one "
+        f"front: {json.dumps(counts, sort_keys=True)}")
     del rt
     torch.cuda.synchronize()
     return {"K6": timed}
@@ -2604,7 +2616,10 @@ def front_sorted(r, cam, tile_row0: int = 0, tile_rows=None):
 # per pair written, counted from its source
 K9_OPS_PER_ROW = 60
 K9_OPS_PER_PAIR = 4
-K9_REPS = (20, 3)  # CUDA-event repetitions (kernels, plain chain)
+K9_REPS = (20, 3)  # CUDA-event repetitions (kernel, plain chain)
+# a record's comb words, read once: columns 0-5 (its id word is the row's
+# index, the order word already counted)
+REC_READ_BYTES = 4 * 6
 
 
 def k9_case(r, cam, label: str, errs: dict, tile_row0: int = 0,
@@ -2612,14 +2627,17 @@ def k9_case(r, cam, label: str, errs: dict, tile_row0: int = 0,
     """K9 (``front_meta.front_meta``) against ``front_meta_plain`` on the
     sorted front renderer ``r`` gives for camera ``cam`` (the whole grid or
     the slab window), with ``budgets`` (wide_rows, wide_pairs; the
-    renderer's by default): pair_starts, rmeta, the counts and the first
-    n_pairs pair rows, bit for bit; the kernels' call runs under
+    renderer's by default): pair_starts, rmeta, the counts, the first
+    n_pairs pair rows and the live records (``tbl_sorted[:we]``,
+    ``tbl_ext[:n_pairs]``, also against the rows' ``REC_COLS`` words), bit
+    for bit; the kernel's call runs under
     ``torch.cuda.set_sync_debug_mode("error")`` (no host read).  Returns
-    ({n_wide, n_fit, n_pairs, leftover}, with ``timed`` (kernel ms, plain
-    ms, None, (bound ms, bound by)) else None)."""
+    ({n_wide, n_fit, n_pairs, leftover, live}, with ``timed`` (kernel ms,
+    plain ms, the two ``index_select`` gathers' ms, (bound ms, bound by))
+    else None)."""
     import torch
 
-    from ash_renderer_tpu_torch.ops import binsort, front_meta
+    from ash_renderer_tpu_torch.ops import binsort, front_meta, tritables
 
     st = r.settings
     wide_rows, wide_pairs = budgets or (st.wide_rows, st.wide_pairs)
@@ -2633,34 +2651,57 @@ def k9_case(r, cam, label: str, errs: dict, tile_row0: int = 0,
     finally:
         torch.cuda.set_sync_debug_mode("default")
     reps = K9_REPS if timed else (0, 0)
-    (rows, starts, rmeta, counts), k_ms = run_timed(
+    (rows, starts, rmeta, counts, tbl, ext), k_ms = run_timed(
         lambda: front_meta.front_meta(*args), reps[0])
-    (rows_p, starts_p, rmeta_p, counts_p), p_ms = run_timed(
+    (rows_p, starts_p, rmeta_p, counts_p, tbl_p, ext_p), p_ms = run_timed(
         lambda: front_meta.front_meta_plain(*args), reps[1])
-    ws, we, new_ws, n_pairs = counts_p.tolist()
+    ws, we, new_ws, n_pairs = counts_p.tolist()[:4]
+    require(tuple(tbl.shape) == (order.shape[0], tritables.REC_WORDS)
+            and tuple(ext.shape) == (wide_pairs, tritables.REC_WORDS),
+            f"K9's tables are {tuple(tbl.shape)} and {tuple(ext.shape)} "
+            f"({label})")
+    # the records also word for word against the rows' REC_COLS: the id
+    # word comes from the row's index, which a comb table holds at ID_COL
+    cols = list(tritables.REC_COLS)
+    n_rec = len(cols)
     err = _max_err([(starts, starts_p), (rmeta, rmeta_p), (counts, counts_p),
-                    (rows[:n_pairs], rows_p[:n_pairs])])
+                    (rows[:n_pairs], rows_p[:n_pairs]), (tbl[:we], tbl_p),
+                    (ext[:n_pairs], ext_p),
+                    (tbl[:we, :n_rec],
+                     comb.index_select(0, order[:we])[:, cols]),
+                    (ext[:n_pairs, :n_rec],
+                     comb.index_select(0, rows[:n_pairs])[:, cols])])
     errs["K9"] = max(errs.get("K9", 0), err)
     require(err == 0, f"K9 differs from front_meta_plain ({label}): {err}")
     stats = {"n_wide": we - ws, "n_fit": new_ws - ws, "n_pairs": n_pairs,
-             "leftover": we - new_ws}
+             "leftover": we - new_ws, "live": we}
     n_tiles = starts.numel() - 1
-    say(f"{label}: K9 bit-equal to front_meta_plain ({n_tiles} tiles of "
-        f"{r.cfg.tile_h} rows, window rows {tile_row0}+"
+    say(f"{label}: K9 bit-equal to front_meta_plain, records included "
+        f"({n_tiles} tiles of {r.cfg.tile_h} rows, window rows {tile_row0}+"
         f"{tile_rows or r.cfg.grid_h}, budgets {wide_rows} rows / "
         f"{wide_pairs} pairs): " + ", ".join(f"{k} {v}"
                                              for k, v in stats.items()))
     if not timed:
         return stats, None
+    # the gathers the front ran before K9 wrote the records: whole rows of
+    # the live prefix and of the pairs, by index_select (a library call,
+    # timed here only)
+    live, pairs = order[:we], rows[:n_pairs]
+    _, lib_ms = run_timed(lambda: (comb.index_select(0, live),
+                                   comb.index_select(0, pairs)), reps[0])
     # the run bounds K9 reads once (each tile's 4 coarse words and first
-    # fine word, ws and we; the other fine words it never reads), each wide
-    # row's order word and 3 comb words, rmeta, pair_starts, the pair rows
-    # and the counts written once
+    # fine word, ws and we; the other fine words it never reads); rmeta,
+    # pair_starts and the counts written once; each live row's order word
+    # and comb words read once and its record written (the wide rows are
+    # live rows, so their words are counted there); each pair's row id and
+    # record written (copied from its wide row's record, nothing read)
     n_live = min(we - ws, wide_rows)
     n_bounds = (binsort.N_GRP + 1) * n_tiles + 2
-    n_bytes = (n_bounds + 4 * n_live + rmeta.numel() + starts.numel()
-               + n_pairs + counts.numel()) * 4
-    return stats, (k_ms, p_ms, None, bound_ms(
+    rec_bytes = 4 * tritables.REC_WORDS
+    n_bytes = ((n_bounds + rmeta.numel() + starts.numel() + counts.numel())
+               * 4 + we * (4 + REC_READ_BYTES + rec_bytes)
+               + n_pairs * (4 + rec_bytes))
+    return stats, (k_ms, p_ms, lib_ms, bound_ms(
         n_bytes, n_live * K9_OPS_PER_ROW + n_pairs * K9_OPS_PER_PAIR))
 
 
@@ -2714,15 +2755,17 @@ def count_syncs(fn):
 
 
 def front_meta_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
-    """Phase 28: the wide-pair expansion and range metadata, kernel K9,
-    against ``front_meta_plain`` on the card, bit for bit: config4 subdiv
-    8 (``r8``) at the fly-by's closest approach (wide pairs live), in slab
-    3 of 8 there, and on 4-row tiles there; terrain at the walk's first
-    frame (timed), and there with a small ``wide_rows`` and a small
-    ``wide_pairs`` (each cut); then one moving front's host reads (exactly
-    one), the launches of a moving frame (K8 once, K9 four times) and of a
-    cached static frame (neither).  Returns {"K9": (kernel ms, plain ms,
-    None, (bound ms, bound by))}."""
+    """Phase 28: the wide-pair expansion, range metadata and sorted-table
+    records, kernel K9, against ``front_meta_plain`` on the card, bit for
+    bit: config4 subdiv 8 (``r8``) at the fly-by's closest approach (wide
+    pairs live), in slab 3 of 8 there, and on 4-row tiles there; terrain
+    at the walk's first frame (timed), and there with a small
+    ``wide_rows`` and a small ``wide_pairs`` (each cut); then one moving
+    front's host reads (none), one moving fused frame and one 8-slab frame
+    under ``set_sync_debug_mode("error")`` against the Renderer's frame,
+    the launches of a moving frame (K8 and K9 once) and of a cached static
+    frame (neither).  Returns {"K9": (kernel ms, plain ms, the gathers'
+    ms, (bound ms, bound by))}."""
     import dataclasses
 
     import torch
@@ -2731,7 +2774,8 @@ def front_meta_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
     from ash_renderer_tpu_torch.benchmarks import config4_terrain
     from ash_renderer_tpu_torch.camera import orbit_path
     from ash_renderer_tpu_torch.ops import front_meta, vertex_transform
-    from ash_renderer_tpu_torch.parallel import slab_rows
+    from ash_renderer_tpu_torch.parallel import (render_frame_sharded_fused,
+                                                 slab_rows)
     from ash_renderer_tpu_torch.renderer import Renderer
     from benchmark import cells
 
@@ -2765,14 +2809,37 @@ def front_meta_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
     require(0 < cut_pairs["n_fit"] < n_wide and cut_pairs["n_pairs"] <= budget,
             f"wide_pairs {budget}: no positional cut")
 
-    # one moving front: its host reads, and the launches of its frame
+    # one moving front: no host read; a moving frame and an 8-slab frame
+    # under "error", equal to the Renderer's frame; the frame's launches
     orbit = orbit_path(N_FRAMES, radius=2.0, center=[0.0, 0.0, 2.0])[5]
     mm_t, mvp_t, _ = front_inputs(r8, orbit)
+    cam_t = torch.from_numpy(orbit.position.astype("float32")).to(dev)
     _, syncs = count_syncs(lambda: pipeline.render_front(
         r8.statics, r8.state, mm_t, mvp_t))
-    require(len(syncs) == 1, f"one moving front made {len(syncs)} host "
-            f"reads, not 1: {syncs}")
-    _, counts, _, _ = run_counted(lambda: r8.render_frame(orbit))
+    require(not syncs, f"one moving front made {len(syncs)} host reads, "
+            f"not 0: {syncs}")
+    # the Renderer's frame, counted: a moving frame (its front-cache entry
+    # is another camera's)
+    (frame_o, _), counts, _, _ = run_counted(lambda: r8.render_frame(orbit))
+    want = r8.read_frame(frame_o)
+    slabs = (r8.statics, (dev,) * 8, {dev: r8.state}, mm_t, mvp_t, cam_t)
+    render_frame_sharded_fused(*slabs)  # first use of the 8-slab shapes
+    for label, frame in (
+            ("moving fused frame", lambda: pipeline.render_frame_fused_staged(
+                r8.statics, r8.state, mm_t, mvp_t, cam_t)),
+            ("8-slab frame", lambda: render_frame_sharded_fused(*slabs))):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = frame()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        require((r8.read_frame(got) == want).all(),
+                f"the {label} under sync debug \"error\" differs from the "
+                "Renderer's frame")
+        say(f"config4 subdiv 8 orbit frame 5: the {label} ran under "
+            "set_sync_debug_mode(\"error\") (no host read) and equals the "
+            "Renderer's frame")
     require(counts.get(vertex_transform.KERNEL, 0) == 1
             and counts.get(front_meta.KERNEL, 0) == front_meta.N_LAUNCHES,
             f"a moving frame's launches: {counts}")
@@ -2781,16 +2848,18 @@ def front_meta_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
     _, counts_c, _, _ = run_counted(lambda: r8.render_frame(cam8))
     require_route("config4 subdiv 8 cached static frame", counts_c, r8,
                   cached=True)
-    k_ms, p_ms, _, (b_ms, by) = timed
+    k_ms, p_ms, lib_ms, (b_ms, by) = timed
     say(f"[{card}] one moving front ({route}): host reads {syncs}; frame "
         f"launches {json.dumps(counts, sort_keys=True)}; "
         f"cached static frame {json.dumps(counts_c, sort_keys=True)}")
     _, floor_ms = run_timed(lambda: torch.cuda._sleep(1), K9_REPS[0])
     say(f"[{card}] K9 at the terrain walk frame ({n_wide} wide rows, "
-        f"{stats['n_pairs']} pairs): {k_ms:.4f} ms for its "
-        f"{front_meta.N_LAUNCHES} launches, front_meta_plain {p_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({by}); launch floor (torch.cuda._sleep(1)) "
-        f"{floor_ms:.4f} ms a launch")
+        f"{stats['n_pairs']} pairs, {stats['live']} live rows): {k_ms:.4f} ms "
+        f"for its one launch, records included; "
+        f"front_meta_plain {p_ms:.4f} ms; the two index_select gathers of "
+        f"whole rows {lib_ms:.4f} ms; bound {b_ms:.4f} ms ({by}), "
+        f"{b_ms / k_ms:.0%} of it; launch floor (torch.cuda._sleep(1)) "
+        f"{floor_ms:.4f} ms")
     del rt
     torch.cuda.synchronize()
     return {"K9": timed}
@@ -3730,6 +3799,18 @@ def main(argv=None) -> int:
         say("phase 4 routes: subdiv 5 " + require_route(
             "phase 4 subdiv 5", counts5, r5) + ", subdiv 8 "
             + require_route("phase 4 subdiv 8", counts8, r8))
+        # one launch of K6 and of K9 a front, as of K8
+        from ash_renderer_tpu_torch.ops import (clip_tail, front_meta,
+                                                vertex_transform)
+        for label, c in (("subdiv 5", counts5), ("subdiv 8", counts8)):
+            n_fronts = c.get(vertex_transform.KERNEL, 0)
+            require(n_fronts > 0 and c.get(clip_tail.KERNEL, 0) == n_fronts
+                    and c.get(front_meta.KERNEL, 0) == n_fronts,
+                    f"phase 4 {label}: K6 and K9 do not launch once a "
+                    f"front: {c}")
+        say("phase 4: K6 and K9 launched once a front ("
+            f"{counts5[vertex_transform.KERNEL]} + "
+            f"{counts8[vertex_transform.KERNEL]} fronts)")
 
     with Phase("6 timings (subdiv 8)"):
         static = [cams8[0]] * N_FRAMES

@@ -66,8 +66,9 @@ def main():
           int(lens.sum()), "slot-pixel evaluations",
           int(lens.sum()) * fused_kernel.N_PIX)
     print("front counters:", {k: int(v) for k, v in stats.items()})
-    print("rows: tbl_sorted", tbl_sorted.shape[0], "tbl_ext", tbl_ext.shape[0],
-          "comb", comb.shape[0])
+    print("records: tbl_sorted", int(stats["live_rows"]), "live of",
+          tbl_sorted.shape[0], "tbl_ext", int(stats["wide_pairs_n"]), "live of",
+          tbl_ext.shape[0], "comb rows", comb.shape[0])
     del rmeta, tbl_sorted, tbl_ext, comb
 
     n = args.frames

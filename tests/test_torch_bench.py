@@ -406,7 +406,7 @@ def test_warmup_without_execute_renders_nothing(monkeypatch):
 @pytest.mark.parametrize("parallel", [True, False])
 @pytest.mark.parametrize("pipeline,sources", [
     ("fused", ("transform.cu", "setup.cu", "clip_tail.cu", "bincount.cu",
-               "front_meta.cu", "raster.cu")),
+               "front_meta.cu", "raster.cu", "shade_pack.cu")),
     ("classic", ("raster_classic.cu",)),
 ])
 def test_warmup_on_a_card_builds_the_routes_libraries(pipeline, sources,
@@ -431,7 +431,7 @@ def test_warmup_builds_the_cuda_auto_routes_libraries(config, monkeypatch):
     """A small scene's settings resolved by the CUDA branch of the auto
     rule (``renderer.auto_route``, called here without a card): warm-up
     builds and loads the sources of the route it resolved to, the fused
-    route's six or classic's K4."""
+    route's seven (K7's with them) or classic's K4."""
     from ash_renderer_tpu_torch.renderer import auto_route
 
     scene, settings, _ = benchmarks.ALL_CONFIGS[config]()
@@ -446,7 +446,7 @@ def test_warmup_builds_the_cuda_auto_routes_libraries(config, monkeypatch):
     monkeypatch.setattr(_build, "load", lambda s: calls.append(("load", s)))
     r.warmup(execute=False)
     sources = (("transform.cu", "setup.cu", "clip_tail.cu", "bincount.cu",
-                "front_meta.cu", "raster.cu")
+                "front_meta.cu", "raster.cu", "shade_pack.cu")
                if st.pipeline == "fused" else ("raster_classic.cu",))
     assert calls == [("build", sources)] + [("load", s) for s in sources]
     assert st.fused_surface_shade == "on"

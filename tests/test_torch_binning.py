@@ -82,8 +82,9 @@ def test_front_matches_reference(name):
     if not overflow:
         assert int(stats["wide_pairs_n"]) == rs["wide_pairs_n"]
     for r in ranges:
-        got = _range_rows(rmeta.numpy(), tbl_sorted.numpy(), tbl_ext.numpy(),
-                          n_tiles, r)
+        # the port's records as the comb rows they stand for
+        got = _range_rows(rmeta.numpy(), tp.table_rows(tbl_sorted, comb),
+                          tp.table_rows(tbl_ext, comb), n_tiles, r)
         want = _range_rows(ref_meta, ref["tbl_sorted"], ref["tbl_ext"],
                            n_tiles, r)
         for tile in range(n_tiles):

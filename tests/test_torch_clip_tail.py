@@ -7,8 +7,10 @@ reference's vertex table, setup flags and main comb rows of the case.
 
 Cases at 192x128: no clip candidate; candidates, among them a triangle
 that crosses the near plane and one that crosses two guard planes; more
-candidates than a small budget (overflow).  A slab's tile-row window and
-4-row tiles: ``test_torch_clip_tail_window.py`` (each JAX stage compiles
+candidates than a small budget (overflow).  A slab's tile-row window,
+4-row tiles and a budget of 17 (the one-launch kernel fans 16 budget
+slots a block, so its last group is partial):
+``test_torch_clip_tail_window.py`` (each JAX stage compiles
 for ~10 s, so the cases are split over two files)."""
 
 import functools
@@ -47,6 +49,8 @@ CASES = {
     "overflow": (_near_plane_scene, _settings(8), 8, (0, None)),
     "slab_window": (_near_plane_scene, _settings(256), 8, (6, 6)),
     "tile_h4": (_near_plane_scene, _settings(256), 4, (0, None)),
+    # a budget that is no multiple of the kernel's 16 slots a block
+    "budget_17": (_near_plane_scene, _settings(17), 8, (0, None)),
 }
 # the cases of this file; the others are test_torch_clip_tail_window.py's
 WHOLE_GRID = ("no_candidate", "candidates", "overflow")

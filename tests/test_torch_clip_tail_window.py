@@ -1,7 +1,8 @@
 """The clip tail against the JAX package's stage, as
 ``test_torch_clip_tail.py`` holds it, on a slab's tile-row window (tile
 rows 6-11 of 16: the tail keys clamped to the window and counted from its
-first row) and on 4-row tiles."""
+first row), on 4-row tiles and with a budget of 17 (no multiple of the
+kernel's 16 slots a block; more candidates than that: overflow)."""
 
 import os
 import sys
@@ -12,7 +13,7 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import test_torch_clip_tail as ct  # noqa: E402
 
-CASES = ("slab_window", "tile_h4")
+CASES = ("slab_window", "tile_h4", "budget_17")
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -31,3 +32,5 @@ def test_the_cases_hold_what_they_name():
     assert not np.array_equal(ct._jax_tail("slab_window")[1],
                               ct._port_tail("candidates")[1].numpy())
     assert ct._setup("tile_h4")[0].cfg.tile_h == 4
+    budget = ct.CASES["budget_17"][1].clip_budget
+    assert budget % 16 and ct._jax_tail("budget_17")[2]["clip_overflow"] > 0

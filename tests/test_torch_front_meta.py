@@ -1,26 +1,34 @@
-"""The fused front's wide-pair expansion and range metadata (kernel K9's
-plain version, ``front_meta.front_meta_plain``, reached through
-``front_meta.front_meta`` on CPU tensors) against the JAX package's
-``binsort.expand_wide_pairs`` and ``fused_kernel.build_range_meta`` under
-``jax.jit`` on the CPU, bit for bit: ``pair_starts``, the counts ``[ws,
-we, new_ws, n_pairs]``, ``rmeta`` (the reference's without its last word,
-the slab's first tile row) and the first ``n_pairs`` pair rows entry for
-entry, so each tile's rows in order.
+"""The fused front's wide-pair expansion, range metadata and sorted-table
+records (kernel K9's plain version, ``front_meta.front_meta_plain``,
+reached through ``front_meta.front_meta`` on CPU tensors) against the JAX
+package's ``binsort.expand_wide_pairs``, ``fused_kernel.build_range_meta``
+and the two ``tritables.sorted_table_budgeted`` gathers of
+``sort_expand_table`` under ``jax.jit`` on the CPU, bit for bit:
+``pair_starts``, the counts, ``rmeta`` (the reference's without its last
+word, the slab's first tile row), the first ``n_pairs`` pair rows entry
+for entry, so each tile's rows in order, the live records (the
+reference's rows ``[:live_end]`` and ``[:n_pairs]`` at
+``tritables.REC_COLS``, then a zero word; tolerance 0) and the front's
+four counters, 0-dim tensors equal to the reference's ``sstats``.
 
 The inputs are made with numpy from a seed: snapped triangle corners
-packed into comb columns 0-2, streaming keys that put chosen rows in the
+packed into comb columns 0-2, each row's index in its id column (the
+records' id word is the row's index), streaming keys that put chosen rows in the
 wide run (some of them dead in the window, as rows keyed from other data
 can be), the stable order and its run bounds.  Cases: an empty wide run,
 more wide rows than ``wide_rows``, pairs past ``wide_pairs`` (the
 positional cut), a dead row inside the consumed prefix, a middle slab and
 a padded last slab, and 4-row tiles.  Then ``pipeline.expand_table`` on
-the CPU against the chain it ran before K9 (five host reads).  The kernel
+the CPU against the chain it ran before K9 (five host reads, whole rows
+gathered), read at the records' columns.  The kernel
 itself is held to the plain version on the card (``chip_smoke.py`` phase
 28)."""
 
 import dataclasses
 import functools
+import inspect
 import os
+import re
 import sys
 
 import jax
@@ -33,9 +41,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_parity as tp  # noqa: E402
 
 from ash_renderer_tpu import config as jconfig  # noqa: E402
-from ash_renderer_tpu_torch import config, pipeline  # noqa: E402
-from ash_renderer_tpu_torch.ops import (binsort, front_meta,  # noqa: E402
-                                        fused_kernel, tritables)
+from ash_renderer_tpu_torch import _build, config, pipeline  # noqa: E402
+from ash_renderer_tpu_torch.ops import (binsort, clip_tail,  # noqa: E402
+                                        front_meta, fused_kernel, tritables)
 
 torch.set_num_threads(1)
 
@@ -105,6 +113,8 @@ def make_front(case: FrontCase, seed: int = 0, n_rows: int = 500):
     comb = rng.integers(-2**31, 2**31, (n_rows, tritables.TBL_COLS),
                         dtype=np.int64).astype(np.int32)
     comb[:, 0:3] = ((xs + off) | ((ys + off) << 16)).astype(np.int32)
+    # each row's own index in its id column, as every comb table holds it
+    comb[:, tritables.ID_COL] = np.arange(n_rows)
     keys = rng.integers(0, nk + 2, n_rows)
     keys[keys == nk] = nk + 1
     keys[wide] = nk
@@ -116,14 +126,17 @@ def make_front(case: FrontCase, seed: int = 0, n_rows: int = 500):
 
 
 def jax_front_meta(case: FrontCase, comb, order, bounds):
-    """(pair_rows, pair_starts, new_ws, rmeta) of the JAX package's
-    expand_wide_pairs and build_range_meta under jax.jit."""
+    """(pair_rows, pair_starts, new_ws, rmeta, tbl_sorted, tbl_ext, sstats)
+    of the JAX package's expand_wide_pairs, build_range_meta and the two
+    budgeted gathers of sort_expand_table under jax.jit."""
     from ash_renderer_tpu.ops import binsort as jbs
     from ash_renderer_tpu.ops import fused_kernel as jfk
+    from ash_renderer_tpu.ops import tritables as jtt
 
     cfg = cfgs(case.tile_h)[1]
     row0, rows = case.window
     n_tiles = (cfg.grid_h if rows is None else rows) * cfg.grid_w
+    nk = n_tiles * jbs.KEYS_PER_TILE
 
     @jax.jit
     def run(comb, order, bounds):
@@ -133,10 +146,19 @@ def jax_front_meta(case: FrontCase, comb, order, bounds):
         rmeta = jfk.build_range_meta(bounds, n_tiles, cfg.grid_w, row0,
                                      pair_starts=pair_starts, pair_base=0,
                                      wide_start=new_ws)
-        return pair_rows, pair_starts, new_ws, rmeta
+        live_end = bounds[nk + 1]
+        n_pairs = pair_starts[-1]
+        tbl_sorted = jtt.sorted_table_budgeted(comb, order, 256, live_end)
+        tbl_ext = jtt.sorted_table_budgeted(comb, pair_rows, 256, n_pairs,
+                                            fracs=(1 / 32, 1 / 4))
+        sstats = {"n_wide": live_end - bounds[nk], "wide_pairs_n": n_pairs,
+                  "wide_leftover": live_end - new_ws, "live_rows": live_end}
+        return (pair_rows, pair_starts, new_ws, rmeta, tbl_sorted, tbl_ext,
+                sstats)
 
-    return [np.asarray(x) for x in run(*(jnp.asarray(a)
-                                         for a in (comb, order, bounds)))]
+    out = run(*(jnp.asarray(a) for a in (comb, order, bounds)))
+    return [np.asarray(x) for x in out[:-1]] + [
+        {k: int(v) for k, v in out[-1].items()}]
 
 
 def port_front_meta(case: FrontCase, comb, order, bounds):
@@ -148,16 +170,20 @@ def port_front_meta(case: FrontCase, comb, order, bounds):
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.name)
 def test_front_meta_matches_jax(case):
     comb, order, bounds, wide, dead = make_front(case)
-    w_rows, w_starts, w_ws, w_meta = jax_front_meta(case, comb, order, bounds)
-    pair_rows, pair_starts, rmeta, counts = (
-        x.numpy() for x in port_front_meta(case, comb, order, bounds))
+    (w_rows, w_starts, w_ws, w_meta, w_sorted, w_ext,
+     w_stats) = jax_front_meta(case, comb, order, bounds)
+    out = port_front_meta(case, comb, order, bounds)
+    pair_rows, pair_starts, rmeta, counts, tbl_sorted, tbl_ext = (
+        x.numpy() for x in out)
     cfg = cfgs(case.tile_h)[0]
     n_tiles = binsort.window_rows(cfg, *case.window)[0] * cfg.grid_w
     nk = n_tiles * binsort.KEYS_PER_TILE
     n_pairs = int(w_starts[-1])
+    live_end = int(bounds[nk + 1])
     np.testing.assert_array_equal(pair_starts, w_starts)
     np.testing.assert_array_equal(
-        counts, [bounds[nk], bounds[nk + 1], int(w_ws), n_pairs])
+        counts, [bounds[nk], live_end, int(w_ws), n_pairs,
+                 live_end - bounds[nk], live_end - int(w_ws)])
     assert counts.dtype == np.int32
     np.testing.assert_array_equal(rmeta, w_meta[:-1])
     assert rmeta.shape == (n_tiles * fused_kernel.N_RANGES * 2,)
@@ -165,6 +191,18 @@ def test_front_meta_matches_jax(case):
     np.testing.assert_array_equal(pair_rows[:n_pairs], w_rows[:n_pairs])
     for a, b in zip(pair_starts[:-1], pair_starts[1:]):
         assert (np.diff(pair_rows[a:b]) > 0).all()
+    # the live records, word for word
+    assert tbl_sorted.shape == (live_end, tritables.REC_WORDS)
+    assert tbl_ext.shape == (n_pairs, tritables.REC_WORDS)
+    assert tbl_sorted.dtype == tbl_ext.dtype == np.int32
+    np.testing.assert_array_equal(tbl_sorted, tp.records(w_sorted[:live_end]))
+    np.testing.assert_array_equal(tbl_ext, tp.records(w_ext[:n_pairs]))
+    # the front's counters: 0-dim tensors with the reference's values
+    stats = front_meta.front_stats(out[3])
+    assert set(stats) == set(w_stats)
+    for k, v in stats.items():
+        assert v.dim() == 0 and v.dtype == torch.int32, k
+        assert int(v) == w_stats[k], k
 
     ws, we, new_ws = (int(v) for v in counts[:3])
     n_fit = new_ws - ws
@@ -185,7 +223,7 @@ def test_front_meta_matches_jax(case):
 def expand_table_before_k9(statics, comb, order, bounds, tile_row0=0,
                            tile_rows=None):
     """``pipeline.expand_table`` as it was before kernel K9: the plain
-    expansion and range meta, five host reads, the same gathers."""
+    expansion and range meta, five host reads, whole rows gathered."""
     cfg = statics.cfg
     st = statics.settings
     n_tiles = binsort.window_rows(cfg, tile_row0, tile_rows)[0] * cfg.grid_w
@@ -196,8 +234,8 @@ def expand_table_before_k9(statics, comb, order, bounds, tile_row0=0,
                                           pair_starts, new_ws)
     ws, live_end = bounds[n_tiles * binsort.KEYS_PER_TILE:][:2].tolist()
     n_pairs = int(pair_starts[-1])
-    tbl_sorted = tritables.sorted_table(comb, order.long(), live_end)
-    tbl_ext = tritables.sorted_table(comb, pair_rows.long(), n_pairs)
+    tbl_sorted = comb.index_select(0, order[:live_end])
+    tbl_ext = comb.index_select(0, pair_rows[:n_pairs])
     sstats = {"n_wide": live_end - ws, "wide_pairs_n": n_pairs,
               "wide_leftover": live_end - new_ws, "live_rows": live_end}
     return rmeta, tbl_sorted, tbl_ext, sstats
@@ -206,8 +244,9 @@ def expand_table_before_k9(statics, comb, order, bounds, tile_row0=0,
 @pytest.mark.parametrize("case", [CASES[0], CASES[3], CASES[5], CASES[7]],
                          ids=lambda c: c.name)
 def test_expand_table_unchanged_on_cpu(case):
-    """pipeline.expand_table on CPU tensors gives the (rmeta, tbl_sorted,
-    tbl_ext, sstats) it gave before K9, host ints for the counters."""
+    """pipeline.expand_table on CPU tensors gives the rmeta it gave before
+    K9, the rows it gathered then as records (their ``REC_COLS``, then a
+    zero word), and the same counters, now 0-dim tensors."""
     comb, order, bounds, _, _ = make_front(case, seed=1)
     cfg = cfgs(case.tile_h)[0]
     statics = pipeline.FrameStatics(
@@ -218,11 +257,14 @@ def test_expand_table_unchanged_on_cpu(case):
     args = (statics, tp.t(comb), tp.t(order), tp.t(bounds), *case.window)
     got = pipeline.expand_table(*args)
     want = expand_table_before_k9(*args)
-    for g, w in zip(got[:3], want[:3]):
+    assert got[0].dtype == want[0].dtype
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    for g, w in zip(got[1:3], want[1:3]):
         assert g.dtype == w.dtype
-        np.testing.assert_array_equal(g.numpy(), w.numpy())
-    assert got[3] == want[3]
-    assert all(type(v) is int for v in got[3].values())
+        np.testing.assert_array_equal(g.numpy(), tp.records(w.numpy()))
+    assert set(got[3]) == set(want[3])
+    for k, v in got[3].items():
+        assert v.dim() == 0 and int(v) == want[3][k], k
 
 
 def test_front_meta_refuses_other_devices():
@@ -234,3 +276,31 @@ def test_front_meta_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         front_meta.front_meta(meta((10, tritables.TBL_COLS)), meta(10),
                               meta(nk + 3), cfg, 64, 4096)
+
+
+def test_a_cuda_front_reads_nothing_back():
+    """What a CUDA front runs of ``pipeline.expand_table`` (the CUDA branch
+    of ``front_meta.front_meta``, ``front_meta.front_stats``) reads nothing
+    back to the host and gathers no table with a library call: the kernel
+    writes the records, and the counters stay 0-dim device tensors."""
+    fm = inspect.getsource(front_meta.front_meta)
+    sources = [inspect.getsource(pipeline.expand_table),
+               fm[fm.index('if dev.type != "cuda"'):],
+               inspect.getsource(front_meta.front_stats)]
+    for src in sources:
+        for call in (".tolist(", ".item(", "index_select", ".cpu(",
+                     ".numpy(", "int(counts", "int(meta"):
+            assert call not in src, call
+
+
+@pytest.mark.parametrize("source, wrapper", [("front_meta.cu", front_meta),
+                                             ("clip_tail.cu", clip_tail)])
+def test_the_kernel_is_one_cooperative_launch(source, wrapper):
+    """K9 and K6 each launch one cooperative grid a call (no ``<<<``), whose
+    passes two grid syncs split, and their wrappers count one launch."""
+    with open(os.path.join(_build.CSRC, source)) as f:
+        code = re.sub(r"//[^\n]*", "", f.read())
+    assert "<<<" not in code
+    assert code.count("cudaLaunchCooperativeKernel(") == 1
+    assert code.count("grid.sync()") == 2
+    assert wrapper.N_LAUNCHES == 1

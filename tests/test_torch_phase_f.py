@@ -57,8 +57,9 @@ def test_k3f_plain_matches_reference_kernel(name):
         jnp.asarray(ref["tbl_ext"]), case.ref_cfg, interpret=True, **ref_kw)
     # the port's range meta has no slab word (the reference's last)
     got = fused_kernel.rasterize_distribute(
-        tp.t(ref["rmeta"][:-1]), tp.t(ref["tbl_sorted"]),
-        tp.t(ref["tbl_ext"]), tp.t(ref["comb"]), case.cfg, smode, consts)
+        tp.t(ref["rmeta"][:-1]), tp.t(tp.records(ref["tbl_sorted"])),
+        tp.t(tp.records(ref["tbl_ext"])), tp.t(ref["comb"]), case.cfg, smode,
+        consts)
     planes, valid = tp.compare_f_planes(got, want)
     assert valid.sum() > 300
     lit = planes[:, fused_kernel.F_LIT][valid]

@@ -42,11 +42,11 @@ def test_raster_matches_reference_kernel(name):
 
     def padded(x):  # the reference's DMA windows read up to 256 rows past
         return jnp.asarray(np.concatenate(
-            [x.numpy(), np.zeros((256, x.shape[1]), np.int32)]))
+            [x, np.zeros((256, x.shape[1]), np.int32)]))
 
     want_d, want_t, want_p = (np.asarray(a) for a in jfk.rasterize_distribute(
-        jax_rmeta(rmeta), padded(tbl_sorted), padded(tbl_ext),
-        case.ref_cfg, interpret=True,
+        jax_rmeta(rmeta), padded(tp.table_rows(tbl_sorted, comb)),
+        padded(tp.table_rows(tbl_ext, comb)), case.ref_cfg, interpret=True,
     ))
     vis_d, vis_t, planes = fused_kernel.rasterize_distribute(
         rmeta, tbl_sorted, tbl_ext, comb, case.cfg
@@ -113,8 +113,8 @@ def test_fine_rows_only_touch_their_window():
     pad = np.zeros((256, 128), np.int32)
     want = jfk.rasterize_distribute(
         jax_rmeta(rmeta),
-        jnp.asarray(np.concatenate([tbl_sorted.numpy(), pad])),
-        jnp.asarray(np.concatenate([tbl_ext.numpy(), pad])),
+        jnp.asarray(np.concatenate([tp.table_rows(tbl_sorted, comb), pad])),
+        jnp.asarray(np.concatenate([tp.table_rows(tbl_ext, comb), pad])),
         case.ref_cfg, interpret=True,
     )
     got = fused_kernel.rasterize_distribute(

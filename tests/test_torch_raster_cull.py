@@ -202,10 +202,10 @@ def record(draw):
 @given(record())
 def test_box_property_on_records(rec):
     verts, tile, rng = rec
-    row = torch.zeros((1, fk.TBL_COLS), dtype=I32)
+    row = torch.zeros((1, fk.REC_WORDS), dtype=I32)  # one record
     for k, (x, y) in enumerate(verts):
         row[0, k] = (x - CFG.min_coord) | ((y - CFG.min_coord) << 16)
-    row[0, fk.ID_COL] = 7
+    row[0, fk.REC_ID] = 7
     rmeta = torch.zeros((CFG.n_tiles, fk.N_RANGES, 2), dtype=I32)
     rmeta[tile, rng, 1] = 1
     check_boxes(rmeta.reshape(-1), row, row.clone(), CFG)

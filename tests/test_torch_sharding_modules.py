@@ -190,8 +190,8 @@ def test_slab_front_matches_reference(window):
     ref_meta = ref["rmeta"][:-1]
     _same(rmeta.numpy(), ref_meta)
     for r in range(fused_kernel.N_RANGES):
-        got = _range_rows(rmeta.numpy(), tbl_sorted.numpy(), tbl_ext.numpy(),
-                          n_tiles, r)
+        got = _range_rows(rmeta.numpy(), tp.table_rows(tbl_sorted, comb),
+                          tp.table_rows(tbl_ext, comb), n_tiles, r)
         want = _range_rows(ref_meta, ref["tbl_sorted"], ref["tbl_ext"],
                            n_tiles, r)
         for tile in range(n_tiles):

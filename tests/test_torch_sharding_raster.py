@@ -25,13 +25,13 @@ from ash_renderer_tpu_torch.ops import fused_kernel  # noqa: E402
 torch.set_num_threads(1)
 
 
-def _jax_tables(rmeta, tbl_sorted, tbl_ext, tile_row0):
+def _jax_tables(rmeta, tbl_sorted, tbl_ext, comb, tile_row0):
     """The slab's tables in the reference's layout: the range meta ends in
-    the slab's first tile row, and the DMA windows read up to 256 rows
-    past each table."""
+    the slab's first tile row, the records become the comb rows they stand
+    for, and the DMA windows read up to 256 rows past each table."""
     def padded(x):
         return jnp.asarray(np.concatenate(
-            [x.numpy(), np.zeros((256, x.shape[1]), np.int32)]))
+            [tp.table_rows(x, comb), np.zeros((256, comb.shape[1]), np.int32)]))
 
     return (jnp.asarray(np.append(rmeta.numpy(), np.int32(tile_row0))),
             padded(tbl_sorted), padded(tbl_ext))
@@ -46,7 +46,7 @@ def test_k3_plain_at_slab_origin(window):
     rmeta, tbl_sorted, tbl_ext, comb, stats = _port_slab_front(*window)
     assert stats["n_clipped"] > 0 and stats["live_rows"] > 0
     want_d, want_t, want_p = (np.asarray(a) for a in jfk.rasterize_distribute(
-        *_jax_tables(rmeta, tbl_sorted, tbl_ext, tile_row0), case.ref_cfg,
+        *_jax_tables(rmeta, tbl_sorted, tbl_ext, comb, tile_row0), case.ref_cfg,
         interpret=True, tile_rows=tile_rows))
     vis_d, vis_t, planes = fused_kernel.rasterize_distribute(
         rmeta, tbl_sorted, tbl_ext, comb, case.cfg, tile_row0=tile_row0,
@@ -75,7 +75,7 @@ def test_k3f_plain_at_slab_origin():
     smode, consts, ref_kw = tp.shade_inputs(case)
     assert smode == (1, 0, True, False, False)
     want = jfk.rasterize_distribute(
-        *_jax_tables(rmeta, tbl_sorted, tbl_ext, tile_row0), case.ref_cfg,
+        *_jax_tables(rmeta, tbl_sorted, tbl_ext, comb, tile_row0), case.ref_cfg,
         interpret=True, tile_rows=tile_rows, **ref_kw)
     got = fused_kernel.rasterize_distribute(
         rmeta, tbl_sorted, tbl_ext, comb, case.cfg, smode, consts,

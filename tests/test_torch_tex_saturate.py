@@ -75,8 +75,8 @@ def test_k3f_saturates_like_reference_kernel():
     ref = tp.jax_front(case)
     smode, consts, ref_kw = tp.shade_inputs(case)
     assert smode == (1, 1, True, True, True)
-    args = (tp.t(ref["rmeta"][:-1]), tp.t(ref["tbl_sorted"]),
-            tp.t(ref["tbl_ext"]), tp.t(ref["comb"]), case.cfg)
+    args = (tp.t(ref["rmeta"][:-1]), tp.t(tp.records(ref["tbl_sorted"])),
+            tp.t(tp.records(ref["tbl_ext"])), tp.t(ref["comb"]), case.cfg)
     want = jfk.rasterize_distribute(
         jnp.asarray(ref["rmeta"]), jnp.asarray(ref["tbl_sorted"]),
         jnp.asarray(ref["tbl_ext"]), case.ref_cfg, interpret=True, **ref_kw)

@@ -46,11 +46,12 @@ def front(case):
                                  tp.t(case.mm), tp.t(case.mvp))
 
 
-def padded(x):
-    """A table as the reference's kernel reads it: its DMA windows read up
+def padded(rec, comb):
+    """The port's records as the table the reference's kernel reads: the
+    comb rows they stand for, then 256 rows, since its DMA windows read up
     to 256 rows past the end."""
     return jnp.asarray(np.concatenate(
-        [x.numpy(), np.zeros((256, x.shape[1]), np.int32)]))
+        [tp.table_rows(rec, comb), np.zeros((256, comb.shape[1]), np.int32)]))
 
 
 @pytest.mark.parametrize("name", ["random", "graze"])
@@ -64,7 +65,7 @@ def test_k3_plain_matches_reference_kernel_4_rows(name):
         assert stats["n_clipped"] > 0 and stats["wide_pairs_n"] > 0
 
     want_d, want_t, want_p = (np.asarray(a) for a in jfk.rasterize_distribute(
-        jax_rmeta(rmeta), padded(tbl_sorted), padded(tbl_ext),
+        jax_rmeta(rmeta), padded(tbl_sorted, comb), padded(tbl_ext, comb),
         case.ref_cfg, interpret=True,
     ))
     vis_d, vis_t, planes = fused_kernel.rasterize_distribute(
@@ -99,7 +100,7 @@ def test_k3f_plain_matches_reference_kernel_4_rows(name, mode):
         assert int((m[:, fused_kernel.FINE_RANGE, 1]
                     - m[:, fused_kernel.FINE_RANGE, 0]).sum()) > 100
     want = jfk.rasterize_distribute(
-        jax_rmeta(rmeta), padded(tbl_sorted), padded(tbl_ext), case.ref_cfg,
+        jax_rmeta(rmeta), padded(tbl_sorted, comb), padded(tbl_ext, comb), case.ref_cfg,
         interpret=True, **ref_kw)
     got = fused_kernel.rasterize_distribute(
         rmeta, tbl_sorted, tbl_ext, comb, case.cfg, smode, consts)

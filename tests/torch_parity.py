@@ -384,6 +384,28 @@ def jax_front(case, setup_only=False):
     return out
 
 
+def records(rows):
+    """The port's (N, 8) records of (N, 128) table rows (numpy): the words
+    at ``tritables.REC_COLS``, then a zero word, as kernel K9 writes them."""
+    from ash_renderer_tpu_torch.ops import tritables
+
+    rows = np.asarray(rows)
+    return np.concatenate([rows[:, list(tritables.REC_COLS)],
+                           np.zeros((rows.shape[0], 1), np.int32)], axis=1)
+
+
+def table_rows(rec, comb):
+    """The (N, 128) comb rows behind the port's records ``rec`` (numpy):
+    a record's id word is its row's index in the unsorted ``comb``.  Fails
+    unless each record is its row's ``records``."""
+    from ash_renderer_tpu_torch.ops import tritables
+
+    rec, comb = np.asarray(rec), np.asarray(comb)
+    rows = comb[rec[:, tritables.REC_ID]]
+    np.testing.assert_array_equal(rec, records(rows))
+    return rows
+
+
 def t(a, dtype=None):
     """numpy -> CPU tensor (copy)."""
     x = torch.from_numpy(np.array(a))
