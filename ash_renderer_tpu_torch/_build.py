@@ -34,7 +34,8 @@ import subprocess
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-HEADERS = ("specmath.cuh", "binsort.cuh", "coop.cuh")
+HEADERS = ("specmath.cuh", "binsort.cuh", "coop.cuh", "clip.cuh",
+           "shade.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -93,11 +94,29 @@ KERNELS = {
         # has_m, clear rgba, stream
         "ash_shade_pack": [_P, _P, _I, _P, _P, _P] + [_I] * 5 + [_F, _I]
                           + [_F] * 4 + [_P],
+        # vis_tri, setup rows, attrs, consts, n_consts, m_n, t_n, has_m,
+        # has_a, has_l, quads (or NULL), n_quads, light colour (or NULL),
+        # sRGB LUT (or NULL), out, n_setup, n_attrs, vis row pitch, out_h,
+        # out_w, ss, subpixel scale, py_offset, inv_ss2, clear rgba, stream
+        "ash_shade_pack_classic": [_P] * 4 + [_I] * 6 + [_P, _I] + [_P] * 3
+                                  + [_I] * 8 + [_F] * 5 + [_P],
     },
     "transform.cu": {
         # positions, vert_obj, normals, colors, uvs, model_mats, mvp_mats,
         # out, n_verts, n_obj, stream
         "ash_vertex_transform": [_P] * 8 + [_I] * 2 + [_P],
+        # ... as above, with clip and attrs in place of out
+        "ash_vertex_transform_rows": [_P] * 9 + [_I] * 2 + [_P],
+    },
+    "geometry.cu": {
+        # clip, attrs, vtx, attrs_full, n_verts, width, height, min_c,
+        # max_cx, max_cy, ss, gx, gy, stream
+        "ash_geometry_vertices": [_P] * 4 + [_I] * 7 + [_F, _F] + [_P],
+        # vtx, corners (or NULL), clip, attrs, tri_v, tri_mat, scratch
+        # (counters, per-chunk counts, sel, flags), setup rows, valid,
+        # attrs_full, n_verts, n_tris, budget, width, height, min_c,
+        # max_cx, max_cy, ss, gx, gy, stream
+        "ash_geometry_tris": [_P] * 10 + [_I] * 9 + [_F, _F] + [_P],
     },
     "front_meta.cu": {
         # comb, order, bounds, rects, wrow, wrec, tile_cnt, row_cnt,
@@ -114,6 +133,16 @@ KERNELS = {
     },
 }
 _ENTRY_SOURCE = {e: s for s, entries in KERNELS.items() for e in entries}
+# route -> the kernel sources its frames launch on a card, which
+# ``Renderer.warmup`` builds: the classic route's K8C, K10, K4 and K11
+# (the Renderer packs it plainly, so K5's gather.cu is not among them);
+# the fused route's front (K8, K1, K6, K2, K9), K3 / K3F and K7
+ROUTE_SOURCES = {
+    "classic": ("transform.cu", "geometry.cu", "raster_classic.cu",
+                "shade_pack.cu"),
+    "fused": ("transform.cu", "setup.cu", "clip_tail.cu", "bincount.cu",
+              "front_meta.cu", "raster.cu", "shade_pack.cu"),
+}
 _LIBS: dict = {}
 
 

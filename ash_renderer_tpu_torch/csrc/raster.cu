@@ -56,6 +56,8 @@
 // (shade.py:surface_prelight), on the pixel's 12 attributes held in
 // registers; its select trees over the material / mip / light tables
 // become indexed loads from the shade constants, staged in shared memory.
+// The surface code is shade.cuh's prelight(), which K11 (shade_pack.cu)
+// runs too.
 //
 // What bounds it: device memory, no longer integer throughput in phase V.
 // At the headline the work must move 274 MB (the 199 MB of planes, vis,
@@ -68,6 +70,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "shade.cuh"
 #include "specmath.cuh"
 
 namespace {
@@ -105,7 +108,6 @@ constexpr int VIS_ROW = 17;
 constexpr int COMB_QUADS = 12;  // the 48 comb columns phase D reads
 constexpr int CHUNK = 512;
 static_assert(CHUNK <= THREADS, "one staging thread per record");
-constexpr int MAX_LEVELS = 13;
 // 16 materials * 7 + 2 textures * (3 * 13 + 1) + light 7 + camera 3
 constexpr int MAX_CONSTS = 16 * 7 + 2 * (3 * MAX_LEVELS + 1) + 7 + 3;
 // phase F plane rows
@@ -129,139 +131,26 @@ union Smem {
   } win;
 };
 
-// offsets of the shade constants (shade.py:shade_consts_layout)
-struct ShadeLayout {
-  int base, texid, spec, shin, loff, lw, lh, nlev, ldir, lcol, amb, cam;
-};
-
-struct ShadeMode {
-  const int* consts;
-  int n_consts, m_n, t_n, has_m, has_a, has_l;
-};
-
-__device__ ShadeLayout shade_layout(const ShadeMode& sm) {
-  ShadeLayout L{};
-  int pos = 0;
-  if (sm.has_m) {
-    L.base = pos; pos += 4 * sm.m_n;
-    L.texid = pos; pos += sm.m_n;
-    L.spec = pos; pos += sm.m_n;
-    L.shin = pos; pos += sm.m_n;
-  }
-  if (sm.has_a) {
-    L.loff = pos; pos += sm.t_n * MAX_LEVELS;
-    L.lw = pos; pos += sm.t_n * MAX_LEVELS;
-    L.lh = pos; pos += sm.t_n * MAX_LEVELS;
-    L.nlev = pos; pos += sm.t_n;
-  }
-  if (sm.has_l) {
-    L.ldir = pos; pos += 3;
-    L.lcol = pos; pos += 3;
-    L.amb = pos; pos += 1;
-  }
-  L.cam = pos;
-  return L;
-}
-
 // Phase F: writes planes rows 0-16 of one pixel (out points at row 0; rows
-// are N_PIX apart).  a: the 12 interpolated attributes; durx..dvry: the raw
-// uv derivatives; mat_row: the winner's material; sc: the shade constants.
+// are N_PIX apart): shade.cuh's prelight of the 12 interpolated attributes
+// a, the raw uv derivatives durx..dvry and the winner's material mat_row,
+// from the shade constants sc.
 template <int N_PIX>
 __device__ __forceinline__ void phase_f(int* out, const float (&a)[12],
                                         float durx, float dvrx, float dury,
                                         float dvry, int mat_row,
                                         const int* sc, const ShadeMode& sm) {
-  const ShadeLayout L = shade_layout(sm);
-  float pch[4] = {a[0], a[1], a[2], a[3]};
-  float diff[3] = {0.0f, 0.0f, 0.0f};
-  float spec = 0.0f, fu = 0.0f, fv = 0.0f;
-  int lit = 0, tap = 0, texmask = 0, mat = 0;
-  if (sm.has_m) {
-    mat = min(max(mat_row, 0), sm.m_n - 1);
+  const Prelight s = prelight(a, durx, dvrx, dury, dvry, mat_row, sc, sm);
 #pragma unroll
-    for (int ch = 0; ch < 4; ++ch)
-      pch[ch] = fmul(pch[ch], fbits(sc[L.base + 4 * mat + ch]));
-    if (sm.has_a) {
-      const int tex_id = sc[L.texid + mat];
-      // the mip level from the raw uv derivatives
-      const int tex_c = min(max(tex_id, 0), sm.t_n - 1);
-      const float bw = i2f(sc[L.lw + tex_c * MAX_LEVELS]);
-      const float bh = i2f(sc[L.lh + tex_c * MAX_LEVELS]);
-      const int nl = sc[L.nlev + tex_c];
-      auto fp2 = [&](float dur, float dvr) {
-        const float du = fmul(dur, bw), dv = fmul(dvr, bh);
-        return fadd(fmul(du, du), fmul(dv, dv));
-      };
-      float rho2 = fmax_nan(fp2(durx, dvrx), fp2(dury, dvry));
-      rho2 = fmax_nan(rho2, 1e-20f);
-      const int level =
-          min(max(float_exponent(rho2) >> 1, 0), max(nl - 1, 0));
-      // the tap address (shade.tex_address)
-      const int flat = tex_c * MAX_LEVELS + level;
-      const int off_t = sc[L.loff + flat];
-      const int w_t = sc[L.lw + flat], h_t = sc[L.lh + flat];
-      const float us = isfinite(a[7]) ? a[7] : 0.0f;
-      const float vs = isfinite(a[8]) ? a[8] : 0.0f;
-      const float ut = fsub(fmul(us, i2f(w_t)), 0.5f);
-      const float vt = fsub(fmul(vs, i2f(h_t)), 0.5f);
-      const int iu0 = f32_to_i32_sat(floorf(ut));
-      const int iv0 = f32_to_i32_sat(floorf(vt));
-      fu = fsub(ut, i2f(iu0));
-      fv = fsub(vt, i2f(iv0));
-      tap = wadd(wadd(off_t, wmul(floormod(iv0, h_t), w_t)),
-                 floormod(iu0, w_t));
-      texmask = tex_id >= 0 ? 1 : 0;
-    }
-  }
-  if (sm.has_l) {
-    // Blinn-Phong diffuse and specular
-    const float nx = a[4], ny = a[5], nz = a[6];
-    const float n2 = dot3(nx, nx, ny, ny, nz, nz);
-    const float invn = rsqrt_spec(fmax_nan(n2, 1e-30f));
-    const float nhx = fmul(nx, invn), nhy = fmul(ny, invn),
-                nhz = fmul(nz, invn);
-    lit = n2 > 1e-12f ? 1 : 0;
-    const float l0 = fbits(sc[L.ldir]), l1 = fbits(sc[L.ldir + 1]),
-                l2 = fbits(sc[L.ldir + 2]);
-    const float invd = rsqrt_spec(fmax_nan(dot3(l0, l0, l1, l1, l2, l2),
-                                           1e-30f));
-    const float ldx = fmul(l0, invd), ldy = fmul(l1, invd),
-                ldz = fmul(l2, invd);
-    const float ndotl =
-        fmax_nan(-dot3(nhx, ldx, nhy, ldy, nhz, ldz), 0.0f);
-    const float amb = fbits(sc[L.amb]);
+  for (int ch = 0; ch < 4; ++ch) out[(F_P + ch) * N_PIX] = bits(s.p[ch]);
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-      diff[i] = fadd(amb, fmul(ndotl, fbits(sc[L.lcol + i])));
-    if (sm.has_m) {
-      const float sk = fbits(sc[L.spec + mat]);
-      const int sh = sc[L.shin + mat];
-      const float vx = fsub(fbits(sc[L.cam]), a[9]);
-      const float vy = fsub(fbits(sc[L.cam + 1]), a[10]);
-      const float vz = fsub(fbits(sc[L.cam + 2]), a[11]);
-      const float invv =
-          rsqrt_spec(fmax_nan(dot3(vx, vx, vy, vy, vz, vz), 1e-30f));
-      const float hx = fsub(fmul(vx, invv), ldx);
-      const float hy = fsub(fmul(vy, invv), ldy);
-      const float hz = fsub(fmul(vz, invv), ldz);
-      const float invh =
-          rsqrt_spec(fmax_nan(dot3(hx, hx, hy, hy, hz, hz), 1e-30f));
-      const float ndoth = fmax_nan(
-          dot3(nhx, fmul(hx, invh), nhy, fmul(hy, invh), nhz, fmul(hz, invh)),
-          0.0f);
-      spec = fmul(powi(ndoth, sh, 8), sk);
-    }
-  }
-#pragma unroll
-  for (int ch = 0; ch < 4; ++ch) out[(F_P + ch) * N_PIX] = bits(pch[ch]);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) out[(F_DIFF + i) * N_PIX] = bits(diff[i]);
-  out[F_SPEC * N_PIX] = bits(spec);
-  out[F_LIT * N_PIX] = lit;
-  out[F_TAP * N_PIX] = tap;
-  out[F_FU * N_PIX] = bits(fu);
-  out[F_FV * N_PIX] = bits(fv);
-  out[F_TEXMASK * N_PIX] = texmask;
+  for (int i = 0; i < 3; ++i) out[(F_DIFF + i) * N_PIX] = bits(s.diff[i]);
+  out[F_SPEC * N_PIX] = bits(s.spec);
+  out[F_LIT * N_PIX] = s.lit;
+  out[F_TAP * N_PIX] = s.tap;
+  out[F_FU * N_PIX] = bits(s.fu);
+  out[F_FV * N_PIX] = bits(s.fv);
+  out[F_TEXMASK * N_PIX] = s.texmask;
 #pragma unroll
   for (int k = F_TEXMASK + 1; k < VIS_ROW; ++k) out[k * N_PIX] = 0;
 }

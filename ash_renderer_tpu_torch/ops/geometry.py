@@ -6,6 +6,28 @@ pipeline's clip tail (``clip_tail_fused``).  The clip path is a budgeted
 compaction of needs-clip triangles, Sutherland-Hodgman against the guard
 frustum, fan triangulation, snap, cull and winding, in the spec's op order;
 it runs only on frames that have a clip candidate.
+
+Two kernels, neither of which replaces a Pallas kernel (the reference
+computes both stages as XLA glue under one jit, ``_stage_geometry``,
+``ash_renderer_tpu/pipeline.py:680``, which XLA fuses):
+
+* K8C (``transform_vertices``, ``csrc/transform.cu``): the vertex
+  transform in row layout, one launch where eager torch pays ~64; its
+  plain version is ``transform_vertices_plain``.
+* K10 (``geometry_device``, ``csrc/geometry.cu``): the classic setup in
+  two launches (a vertex pass, then one cooperative launch that sets up
+  the triangles, selects the clip candidates and clips them) with no host
+  read, where eager torch pays hundreds of launches, a host read of the
+  candidate count on every frame and the select's ``nonzero`` on every
+  frame that clips; its plain version is ``geometry_device_plain``.  It
+  writes the setup as one (S, ``SETUP_COLS``) table (``geometry_rows``,
+  which the classic frame binds to binning and to K11) beside a bool
+  ``valid`` array, and the counters as 0-dim int32 tensors on the
+  device.
+
+Both are bound by bytes (a few MB a frame at the default clip budget), so
+their time is their launches'.  CPU tensors take the plain versions; CUDA
+tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -15,8 +37,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import _build
 from .. import specmath as sm
-from ..rtypes import SETUP_F32_FIELDS, TriangleSetup
+from ..rtypes import (SETUP_COLS, SETUP_F32_FIELDS, SETUP_ROW_FIELDS,
+                      TriangleSetup)
 from . import meshlet_gather
 
 ATTR_COLS = 12
@@ -24,6 +48,12 @@ MAX_CLIP_VERTS = 9
 MAX_CLIP_TRIS = MAX_CLIP_VERTS - 2
 POLY_SLOTS = 12  # intermediate polygons may exceed 9 vertices mid-pipeline
 VTX_COLS = 8  # _vertex_post's packed row: x, y, zq, iw bits, outcode, pad
+
+KERNEL_TRANSFORM = "K8C_vertex_transform_rows"
+KERNEL = "K10_geometry"
+# K10's counters, in the order of its counter buffer
+COUNTERS = ("n_clipped", "clip_overflow", "n_valid", "n_fast")
+K10_CHUNK = 4096  # triangles a chunk of K10's count and select passes
 
 _SETUP_FIELDS = tuple(f.name for f in dataclasses.fields(TriangleSetup))
 _TAIL_FIELDS = (
@@ -67,13 +97,79 @@ def vertex_rows(positions, vert_obj, normals, colors, uvs, model_mats,
     ]
 
 
+def check_transform_args(fn: str, positions, vert_obj, normals, colors, uvs,
+                         model_mats, mvp_mats):
+    """Raise ``ValueError`` unless the vertex transform's arguments are
+    what its kernels (K8, K8C) take: contiguous tensors on one device,
+    float32 (V, 3) positions and normals, (V, 4) colours, (V, 2) uvs,
+    int32 (V,) object ids and (O, 4, 4) matrices with O >= 1."""
+    dev = positions.device
+    v = positions.shape[0]
+    n_obj = model_mats.shape[0]
+    for name, x, dtype, shape in (
+        ("positions", positions, torch.float32, (v, 3)),
+        ("vert_obj", vert_obj, torch.int32, (v,)),
+        ("normals", normals, torch.float32, (v, 3)),
+        ("colors", colors, torch.float32, (v, 4)),
+        ("uvs", uvs, torch.float32, (v, 2)),
+        ("model_mats", model_mats, torch.float32, (n_obj, 4, 4)),
+        ("mvp_mats", mvp_mats, torch.float32, (n_obj, 4, 4)),
+    ):
+        if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise ValueError(f"{fn}: bad {name} {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    if n_obj < 1:
+        raise ValueError(f"{fn}: no object matrices")
+
+
 def transform_vertices(positions, vert_obj, normals, colors, uvs, model_mats,
                        mvp_mats):
     """Clip positions (V, 4) and the combined attribute table (V, 12):
-    [colour 4, world normal 3, uv 2, world position 3]."""
+    [colour 4, world normal 3, uv 2, world position 3], float32, under the
+    model (``model_mats``) and MVP (``mvp_mats``) matrices, (O, 4, 4) each:
+    one object's are broadcast, several are taken by ``vert_obj``.  Raises
+    ``ValueError`` on arguments the kernel does not take
+    (``check_transform_args``).  CPU tensors take the plain version; CUDA
+    tensors launch kernel K8C."""
+    dev = positions.device
+    check_transform_args("transform_vertices", positions, vert_obj, normals,
+                         colors, uvs, model_mats, mvp_mats)
+    if dev.type == "cpu":
+        return transform_vertices_plain(positions, vert_obj, normals, colors,
+                                        uvs, model_mats, mvp_mats)
+    if dev.type != "cuda":
+        raise ValueError(f"transform_vertices: unsupported device {dev}")
+    v = positions.shape[0]
+    # one allocation: clip rows, then attribute rows (16-byte rows each)
+    out = torch.empty(v * (4 + ATTR_COLS), dtype=torch.float32, device=dev)
+    clip = out[: 4 * v].view(v, 4)
+    attrs = out[4 * v :].view(v, ATTR_COLS)
+    _build.launch(
+        KERNEL_TRANSFORM, "ash_vertex_transform_rows", dev,
+        positions.data_ptr(), vert_obj.data_ptr(), normals.data_ptr(),
+        colors.data_ptr(), uvs.data_ptr(), model_mats.data_ptr(),
+        mvp_mats.data_ptr(), clip.data_ptr(), attrs.data_ptr(), v,
+        model_mats.shape[0],
+    )
+    return clip, attrs
+
+
+def transform_vertices_plain(positions, vert_obj, normals, colors, uvs,
+                             model_mats, mvp_mats):
+    """transform_vertices in torch ops (any device): ``vertex_rows``
+    stacked."""
     rows = vertex_rows(positions, vert_obj, normals, colors, uvs, model_mats,
                        mvp_mats)
     return torch.stack(rows[:4], dim=1), torch.stack(rows[4:], dim=1)
+
+
+def guard_factors(cfg):
+    """The guard planes' float32 factors (gx, gy): 1 + 2 * guard_px /
+    width (height)."""
+    gx = np.float32(1.0 + 2.0 * cfg.guard_px / cfg.width)
+    gy = np.float32(1.0 + 2.0 * cfg.guard_px / cfg.height)
+    return gx, gy
 
 
 def _plane_dists(c, gx: float, gy: float):
@@ -273,8 +369,7 @@ def _vertex_post(clip, cfg):
     distance is negative: bits 0-5 the guard planes (``_plane_dists``'
     order), bits 6-9 the screen side planes."""
     cx, cy, cz, cw = (clip[:, k].contiguous() for k in range(4))
-    gx = float(np.float32(1.0 + 2.0 * cfg.guard_px / cfg.width))
-    gy = float(np.float32(1.0 + 2.0 * cfg.guard_px / cfg.height))
+    gx, gy = (float(g) for g in guard_factors(cfg))
     xi, yi, zq, iw = _snap_corner(cx, cy, cz, cw, cfg)
     ds = (
         cz, cw - cz,
@@ -291,6 +386,96 @@ def _vertex_post(clip, cfg):
     )
 
 
+def _check_geometry_args(clip, attrs, tri_v, tri_mat, local_tri):
+    dev = clip.device
+    v, t = clip.shape[0], tri_v.shape[0]
+    args = [("clip", clip, torch.float32, (v, 4)),
+            ("attrs", attrs, torch.float32, (v, ATTR_COLS)),
+            ("tri_v", tri_v, torch.int32, (t, 3)),
+            ("tri_mat", tri_mat, torch.int32, (t,))]
+    if local_tri is not None:
+        args.append(("local_tri", local_tri, torch.int32, (t, 3)))
+    for name, x, dtype, shape in args:
+        if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise ValueError(f"geometry_device: bad {name} {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    if v < 1:
+        raise ValueError("geometry_device: no vertices")
+
+
+def setup_table(su):
+    """The (S, SETUP_COLS) int32 table of a TriangleSetup's fields
+    (``rtypes.SETUP_ROW_FIELDS``, floats as bits), as kernel K10 writes
+    it."""
+    cols = [sm.bitcast_i32(getattr(su, k)) if k in SETUP_F32_FIELDS
+            else getattr(su, k) for k in SETUP_ROW_FIELDS]
+    pad = torch.zeros_like(su.x0)
+    return torch.stack(cols + [pad] * (SETUP_COLS - len(cols)), dim=1)
+
+
+def setup_from_rows(rows, valid):
+    """The TriangleSetup whose fields are the columns of ``rows`` (S,
+    SETUP_COLS) int32 (``setup_table``'s layout) and whose ``valid`` is
+    the (S,) bool ``valid``: views, no copy."""
+    cols = rows.unbind(1)  # one call makes every column view
+    fields = {k: cols[i].view(torch.float32) if k in SETUP_F32_FIELDS
+              else cols[i] for i, k in enumerate(SETUP_ROW_FIELDS)}
+    return TriangleSetup(valid=valid, **fields)
+
+
+def geometry_rows(clip, attrs, tri_v, tri_mat, cfg, clip_budget: int,
+                  local_tri=None):
+    """``geometry_device`` with the setup as one table: (rows (S,
+    SETUP_COLS) int32, ``setup_table``'s layout, valid (S,) bool,
+    combined attributes, stats).  CPU tensors take the plain version and
+    pack its fields; CUDA tensors launch kernel K10 (two launches, no host
+    read), which writes the table itself."""
+    dev = clip.device
+    _check_geometry_args(clip, attrs, tri_v, tri_mat, local_tri)
+    if dev.type == "cpu":
+        su, attrs_full, stats = geometry_device_plain(
+            clip, attrs, tri_v, tri_mat, cfg, clip_budget, local_tri)
+        return setup_table(su), su.valid, attrs_full, stats
+    if dev.type != "cuda":
+        raise ValueError(f"geometry_device: unsupported device {dev}")
+    for name, x in (("clip", clip), ("attrs", attrs)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"geometry_device: {name} is not 16-byte "
+                             "aligned")
+    v, t, b = clip.shape[0], tri_v.shape[0], clip_budget
+    s = t + MAX_CLIP_TRIS * b
+    snap = (cfg.width, cfg.height, cfg.min_coord, cfg.max_coord_x,
+            cfg.max_coord_y, cfg.subpixel_scale)
+    gx, gy = (float(g) for g in guard_factors(cfg))
+    attrs_full = torch.empty((v + MAX_CLIP_VERTS * b, ATTR_COLS),
+                             dtype=torch.float32, device=dev)
+    # one allocation: the snapped vertex rows, the setup rows, then the
+    # counters, the per-chunk counts, sel and the row flags
+    n_chunks = -(-t // K10_CHUNK)
+    n_scratch = len(COUNTERS) + 3 * n_chunks + b + t
+    words = torch.empty(v * VTX_COLS + s * SETUP_COLS + n_scratch,
+                        dtype=torch.int32, device=dev)
+    vtx = words[: v * VTX_COLS].view(v, VTX_COLS)
+    rows = words[v * VTX_COLS : v * VTX_COLS + s * SETUP_COLS].view(
+        s, SETUP_COLS)
+    scratch = words[v * VTX_COLS + s * SETUP_COLS :]
+    valid = torch.empty(s, dtype=torch.bool, device=dev)
+    _build.launch(KERNEL, "ash_geometry_vertices", dev, clip.data_ptr(),
+                  attrs.data_ptr(), vtx.data_ptr(), attrs_full.data_ptr(), v,
+                  *snap, gx, gy)
+    corners = (None if local_tri is None
+               else meshlet_gather.gather_tri_rows(vtx, local_tri))
+    _build.launch(
+        KERNEL, "ash_geometry_tris", dev, vtx.data_ptr(),
+        None if corners is None else corners.data_ptr(), clip.data_ptr(),
+        attrs.data_ptr(), tri_v.data_ptr(), tri_mat.data_ptr(),
+        scratch.data_ptr(), rows.data_ptr(), valid.data_ptr(),
+        attrs_full.data_ptr(), v, t, b, *snap, gx, gy)
+    stats = dict(zip(COUNTERS, scratch[: len(COUNTERS)].unbind()))
+    return rows, valid, attrs_full, {**stats, "n_setup": s}
+
+
 def geometry_device(clip, attrs, tri_v, tri_mat, cfg, clip_budget: int,
                     local_tri=None):
     """The classic pipeline's triangle setup.
@@ -301,7 +486,25 @@ def geometry_device(clip, attrs, tri_v, tri_mat, cfg, clip_budget: int,
     kernel K5 (``meshlet_gather.gather_tri_rows``), else from a row gather
     by ``tri_v``; both give the same rows.  Returns (TriangleSetup of
     S = T + 7 * clip_budget rows, combined attributes (V + 9 * clip_budget,
-    12), stats)."""
+    12), stats: ``COUNTERS`` as 0-dim int32 tensors on the device, and
+    n_setup = S).  Raises ``ValueError`` on arguments the kernel does not
+    take.  CPU tensors take the plain version; CUDA tensors launch kernel
+    K10 (``geometry_rows``), whose table's columns the fields are."""
+    if clip.device.type == "cpu":
+        _check_geometry_args(clip, attrs, tri_v, tri_mat, local_tri)
+        return geometry_device_plain(clip, attrs, tri_v, tri_mat, cfg,
+                                     clip_budget, local_tri)
+    rows, valid, attrs_full, stats = geometry_rows(
+        clip, attrs, tri_v, tri_mat, cfg, clip_budget, local_tri)
+    return setup_from_rows(rows, valid), attrs_full, stats
+
+
+def geometry_device_plain(clip, attrs, tri_v, tri_mat, cfg, clip_budget: int,
+                          local_tri=None):
+    """geometry_device in torch ops (any device): the fast path, the
+    budgeted clip path (on frames with a clip candidate) and the
+    counters, which come back as 0-dim int32 tensors as the kernel's
+    do."""
     dev = clip.device
     t_in = tri_v.shape[0]
     nv_pad = clip.shape[0]
@@ -355,11 +558,13 @@ def geometry_device(clip, attrs, tri_v, tri_mat, cfg, clip_budget: int,
     su = TriangleSetup(**{
         k: torch.cat([main[k], clipped[k].reshape(-1)]) for k in _SETUP_FIELDS
     })
-    stats = {
-        "clip_overflow": n_clip - min(n_clip, clip_budget),
-        "n_fast": fast.sum(),
+    values = {
         "n_clipped": n_clip,
+        "clip_overflow": n_clip - min(n_clip, clip_budget),
         "n_valid": su.valid.sum(),
-        "n_setup": su.valid.shape[0],
+        "n_fast": fast.sum(),
     }
-    return su, torch.cat([attrs, extra]), stats
+    stats = {k: torch.as_tensor(values[k], dtype=torch.int32, device=dev)
+             for k in COUNTERS}
+    return su, torch.cat([attrs, extra]), {**stats,
+                                            "n_setup": su.valid.shape[0]}

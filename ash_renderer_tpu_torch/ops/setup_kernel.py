@@ -33,6 +33,7 @@ from .. import _build
 from .. import specmath as sm
 from ..scene import MESHLET_TRIS, MESHLET_VERTS
 from . import binsort
+from .geometry import guard_factors
 from .tritables import ID_COL, TBL_COLS
 from .vertex_transform import N_ROWS as N_TBL_ROWS  # clip x,y,z,w + 12 attrs
 # the vertex stage's entry point: kernel K8 on CUDA tensors, the plain chain
@@ -55,14 +56,6 @@ def prep_static(local_tri: np.ndarray, tri_mat: np.ndarray,
     )
     matT = np.ascontiguousarray(np.asarray(tri_mat).reshape(m, MESHLET_TRIS))
     return ltT.astype(np.int32), matT.astype(np.int32)
-
-
-def guard_factors(cfg):
-    """The guard planes' float32 factors (gx, gy): 1 + 2 * guard_px /
-    width (height)."""
-    gx = np.float32(1.0 + 2.0 * cfg.guard_px / cfg.width)
-    gy = np.float32(1.0 + 2.0 * cfg.guard_px / cfg.height)
-    return gx, gy
 
 
 def triangle_setup(tblT, ltT, matT, cfg, tail_rows: int = 0):

@@ -9,6 +9,18 @@ the classic pipeline's per-pixel winner gather (``shade``) and the resolve
 Every op is a single IEEE float32 mul/add/sub, a select, an integer op or a
 table gather, in the spec's association, so results equal the reference's
 bit for bit on any device.
+
+Kernel K11 (``shade_pack_classic``, ``csrc/shade_pack.cu``): the classic
+route's frame path, ``shade`` then ``resolve_and_pack``, in one launch
+from the visibility buffer, K10's setup rows and the combined attribute
+table to the RGBA8 frame; its plain version is ``shade_pack_classic_plain``.
+It replaces no Pallas kernel: the reference computes the stage as XLA glue
+under one jit (``_stage_shade``, ``ash_renderer_tpu/pipeline.py:698``),
+which XLA fuses, where eager torch pays hundreds of launches and as many
+full-frame temporaries.  Bound by bytes: the winner ids, the visible
+triangles' 14 shading words of the setup table and their corner rows, 4
+bytes a pixel written.
+``diffrender`` keeps ``shade`` on autograd: K11 serves the frame path.
 """
 
 from __future__ import annotations
@@ -18,13 +30,16 @@ import functools
 import numpy as np
 import torch
 
+from .. import _build
 from .. import specmath as sm
-from ..rtypes import SETUP_F32_FIELDS
+from ..rtypes import (SETUP_COLS, SETUP_F32_FIELDS, SETUP_ROW_FIELDS,
+                      SETUP_SHADE_COLS)
 from ..specmath import _f32
 from ..textures import MAX_LEVELS
 
 F32 = torch.float32
 I32 = torch.int32
+KERNEL = "K11_shade_pack_classic"
 
 
 def _take(arr, idx):
@@ -347,12 +362,15 @@ def combine_from_prelight(valid, p, diffuse, spec, lit, tap, fu, fv, texmask,
     return torch.where(valid[..., None], p.movedim(-2, -1), clear)
 
 
-_PACK_FIELDS = "x0 y0 x1 y1 x2 y2 inv_area2 iw0 iw1 iw2 v0 v1 v2 mat".split()
+# the first SETUP_SHADE_COLS columns of the setup table (rtypes)
+_PACK_FIELDS = SETUP_ROW_FIELDS[:SETUP_SHADE_COLS]
 
 
 def pack_setup_table(su):
     """(S, 14) int32 per-triangle shading fields of a TriangleSetup (floats
-    as their bits): one row gather per pixel fetches all of them."""
+    as their bits), the setup table's first columns
+    (``rtypes.SETUP_ROW_FIELDS``): one row gather per pixel fetches all
+    of them."""
     return torch.stack([sm.bitcast_i32(getattr(su, k)) if k in SETUP_F32_FIELDS
                         else getattr(su, k) for k in _PACK_FIELDS], dim=1)
 
@@ -368,8 +386,19 @@ def shade(vis_tri, su, attrs, shade_mode, consts, atlas=None, light=None,
     and ``pack_shade_consts``; ``cf`` and ``specular``: see
     ``shade_gathered``; ``py_offset``: the screen row of ``vis_tri``'s
     first row (a slab's, ``parallel/sharding.py``)."""
+    return _shade_table(vis_tri, pack_setup_table(su), attrs, shade_mode,
+                        consts, atlas=atlas, light=light, cfg=cfg,
+                        clear_color=clear_color, cf=cf, specular=specular,
+                        py_offset=py_offset)
+
+
+def _shade_table(vis_tri, table, attrs, shade_mode, consts, atlas=None,
+                 light=None, cfg=None, clear_color=(0.0, 0.0, 0.0, 1.0),
+                 cf=None, specular=True, py_offset: int = 0):
+    """``shade`` from a setup table whose first columns are
+    ``pack_setup_table``'s."""
     valid = vis_tri >= 0
-    packed = _take(pack_setup_table(su), vis_tri)  # (H, W, 14)
+    packed = _take(table[:, :SETUP_SHADE_COLS], vis_tri)  # (H, W, 14)
     g = {k: sm.bitcast_f32(packed[..., i]) if k in SETUP_F32_FIELDS
          else packed[..., i] for i, k in enumerate(_PACK_FIELDS)}
     corners = [_take(attrs, g[k]).movedim(-1, -2) for k in ("v0", "v1", "v2")]
@@ -430,3 +459,82 @@ def resolve_and_pack(rgba, supersample: int, srgb: bool):
         idx = torch.round(torch.clamp(rgba[..., :3], 0.0, 1.0) * 4095.0).long()
         rgba = torch.cat([lut[idx], rgba[..., 3:4]], dim=-1)
     return sm.pack_unorm8(rgba)
+
+
+def shade_pack_classic(vis_tri, rows, attrs, shade_mode, consts,
+                       atlas=None, light=None, cfg=None,
+                       clear_color=(0.0, 0.0, 0.0, 1.0),
+                       supersample: int = 1, srgb: bool = False,
+                       py_offset: int = 0):
+    """The classic frame's shade + pack: ``shade`` (arguments as there,
+    the setup as ``rows``, the (S, SETUP_COLS) int32 table
+    ``geometry.geometry_rows`` returns) then ``resolve_and_pack`` at
+    ``supersample`` with ``srgb``: the RGBA8 frame (height / supersample,
+    width / supersample, 4) uint8 of the (height, width) visibility
+    buffer.  Raises ``ValueError`` on arguments the kernel does not take.
+    CPU tensors take the plain version; CUDA tensors launch kernel K11."""
+    dev = vis_tri.device
+    m_n, t_n, has_m, has_a, has_l = shade_mode
+    n_consts = shade_consts_layout(shade_mode)["_total"]
+    quads = atlas.quads if has_a else None
+    lcol = light.color if has_l else None
+    for name, x, dtype, cols in (
+            ("vis_tri", vis_tri, I32, (cfg.width,)),
+            ("setup rows", rows, I32, (SETUP_COLS,)),
+            ("attrs", attrs, F32, (12,)), ("consts", consts, I32, ()),
+            ("quads", quads, I32, (4,)), ("light colour", lcol, F32, ())):
+        if x is None:
+            continue
+        shape = (n_consts if name == "consts" else 3 if name == "light colour"
+                 else x.shape[0], *cols)
+        # vis_tri may be a crop of the raster's padded rows: its row pitch
+        # is the kernel's argument
+        dense = (x.stride(-1) == 1 if name == "vis_tri"
+                 else x.is_contiguous())
+        if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
+                or not dense or 0 in shape):
+            raise ValueError(f"shade_pack_classic: bad {name} {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    h, w = vis_tri.shape
+    ss = supersample
+    if ss < 1 or h % ss or w % ss:
+        raise ValueError(f"shade_pack_classic: {h}x{w} render pixels do not "
+                         f"resolve at supersample {ss}")
+    if dev.type == "cpu":
+        return shade_pack_classic_plain(
+            vis_tri, rows, attrs, shade_mode, consts, atlas, light, cfg,
+            clear_color, supersample, srgb, py_offset)
+    if dev.type != "cuda":
+        raise ValueError(f"shade_pack_classic: unsupported device {dev}")
+    for name, x in (("setup rows", rows), ("attrs", attrs), ("quads", quads)):
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"shade_pack_classic: {name} is not 16-byte "
+                             "aligned")
+    lut = srgb_lut(dev) if srgb else None
+    out = torch.empty((h // ss, w // ss, 4), dtype=torch.uint8, device=dev)
+    clear = [float(v) for v in np.asarray(clear_color, dtype=np.float32)]
+    _build.launch(
+        KERNEL, "ash_shade_pack_classic", dev, vis_tri.data_ptr(),
+        rows.data_ptr(), attrs.data_ptr(), consts.data_ptr(), n_consts,
+        m_n, t_n, int(has_m), int(has_a), int(has_l),
+        None if quads is None else quads.data_ptr(),
+        0 if quads is None else quads.shape[0],
+        None if lcol is None else lcol.data_ptr(),
+        None if lut is None else lut.data_ptr(), out.data_ptr(),
+        rows.shape[0], attrs.shape[0], vis_tri.stride(0), h // ss, w // ss,
+        ss, cfg.subpixel_scale, py_offset, sm._f32(1.0 / (ss * ss)), *clear,
+    )
+    return out
+
+
+def shade_pack_classic_plain(vis_tri, rows, attrs, shade_mode, consts,
+                             atlas=None, light=None, cfg=None,
+                             clear_color=(0.0, 0.0, 0.0, 1.0),
+                             supersample: int = 1, srgb: bool = False,
+                             py_offset: int = 0):
+    """shade_pack_classic in torch ops (any device): ``shade`` from the
+    setup table, then ``resolve_and_pack``."""
+    rgba = _shade_table(vis_tri, rows, attrs, shade_mode, consts,
+                        atlas=atlas, light=light, cfg=cfg,
+                        clear_color=clear_color, py_offset=py_offset)
+    return resolve_and_pack(rgba, supersample, srgb)

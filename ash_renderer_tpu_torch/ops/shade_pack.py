@@ -21,9 +21,11 @@ one thread per output pixel, its samples' plane columns read straight
 into registers, a background sample reading its winner id alone
 (``csrc/shade_pack.cu``).
 
-The phase E route (K3 then ``shade.surface_prelight``) and the classic
-route (``shade.shade``) keep the plain chain: ``pipeline._shade_from_planes``
-lays their RGBA out with ``pack_tiles``.
+The phase E route (K3 then ``shade.surface_prelight``) keeps the plain
+chain: ``pipeline._shade_from_planes`` lays its RGBA out with
+``pack_tiles``.  The classic route's shade + pack is kernel K11
+(``shade.shade_pack_classic``), a second entry of the same source that
+shares K7's combine, SSAA box and pack.
 """
 
 from __future__ import annotations

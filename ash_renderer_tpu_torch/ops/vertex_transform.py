@@ -16,8 +16,9 @@ normal, colour, uv, object id) and writes 64, so at config4 subdiv 8
 (655,362 vertices) it moves ~73 MB, ~0.022 ms at 3.35 TB/s.  One thread a
 vertex; a warp writes 32 neighbouring columns of each table row.
 
-The classic route and the non-meshlet fallback keep the plain chain
-(``geometry.transform_vertices``).
+The classic route and the non-meshlet fallback take the same transform
+in row layout, kernel K8C (``geometry.transform_vertices``), a second
+entry of the same source.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from .. import _build
 from .. import specmath as sm
-from .geometry import vertex_rows
+from .geometry import check_transform_args, vertex_rows
 
 KERNEL = "K8_vertex_transform"
 N_ROWS = 16
@@ -45,23 +46,10 @@ def transform_vertices_T(positions, vert_obj, normals, colors, uvs,
                                           uvs, model_mats, mvp_mats)
     if dev.type != "cuda":
         raise ValueError(f"transform_vertices_T: unsupported device {dev}")
+    check_transform_args("transform_vertices_T", positions, vert_obj,
+                         normals, colors, uvs, model_mats, mvp_mats)
     v = positions.shape[0]
     n_obj = model_mats.shape[0]
-    for name, x, dtype, shape in (
-        ("positions", positions, torch.float32, (v, 3)),
-        ("vert_obj", vert_obj, torch.int32, (v,)),
-        ("normals", normals, torch.float32, (v, 3)),
-        ("colors", colors, torch.float32, (v, 4)),
-        ("uvs", uvs, torch.float32, (v, 2)),
-        ("model_mats", model_mats, torch.float32, (n_obj, 4, 4)),
-        ("mvp_mats", mvp_mats, torch.float32, (n_obj, 4, 4)),
-    ):
-        if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
-                or not x.is_contiguous()):
-            raise ValueError(f"transform_vertices_T: bad {name} {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
-    if n_obj < 1:
-        raise ValueError("transform_vertices_T: no object matrices")
     out = torch.empty((N_ROWS, v), dtype=torch.int32, device=dev)
     _build.launch(
         KERNEL, "ash_vertex_transform", dev,

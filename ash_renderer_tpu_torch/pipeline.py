@@ -1,12 +1,13 @@
 """The frame pipelines: scene tensors + camera matrices -> RGBA8 frame.
 
 The counterpart of ``ash_renderer_tpu/pipeline.py``'s two pipelines.  The
-classic one (``render_frame``, which the Renderer takes for scenes under
-4096 triangles): vertex transform, triangle setup (``geometry_device``,
-with kernel K5 on a meshlet-packed scene), tile binning
-(``binning.bin_triangles``), visibility raster (kernel K4,
-``raster_visibility.rasterize_visibility``), per-pixel winner gather and
-shading (``shade.shade``), resolve + pack.
+classic one (``render_frame``, which the Renderer takes for small scenes):
+vertex transform (kernel K8C, ``geometry.transform_vertices``), triangle
+setup as one table of rows (kernel K10, ``geometry.geometry_rows``, with
+kernel K5 on a meshlet-packed scene), tile binning
+(``binning.bin_triangles``, plain torch), visibility raster (kernel K4,
+``raster_visibility.rasterize_visibility``), per-pixel winner gather,
+shading, resolve + pack (kernel K11, ``shade.shade_pack_classic``).
 
 The fused one (``render_frame_fused_staged``, meshlet-packed scenes).
 Stages, each a plain call on tensors of one device:
@@ -32,7 +33,7 @@ matrices, so ``FrontCache`` reuses them while those bytes stay the same.
 
 The non-meshlet fused fallback (``render_frame_fused``, plain-packed
 scenes) replaces stages 1-3 with the classic setup (``transform_vertices``,
-``geometry_device``), the streaming keys of its setup rows and
+``geometry_device``: K8C and K10), the streaming keys of its setup rows and
 ``tritables.build_comb_table`` (``render_front_fallback``), then runs
 stages 4-7 as above.
 
@@ -114,13 +115,14 @@ def render_frame(statics: FrameStatics, state, model_mats, mvp_mats,
         state.uvs, model_mats, mvp_mats,
     )
     on_stage("transform")
-    su, attrs_full, gstats = geometry.geometry_device(
+    rows, valid, attrs_full, gstats = geometry.geometry_rows(
         clip, attrs, state.tri_v, state.tri_mat, cfg, st.clip_budget,
         local_tri=local_tri,
     )
     on_stage("geometry")
     rec_i, rec_f, rec_box, tile_start, tile_count, bstats = (
-        binning.bin_triangles(su, cfg, st.max_pairs, tile_row0, tile_rows))
+        binning.bin_triangles(geometry.setup_from_rows(rows, valid), cfg,
+                              st.max_pairs, tile_row0, tile_rows))
     on_stage("binning")
     vis_d, vis_t = raster_visibility.rasterize_visibility(
         rec_i, rec_f, tile_start, tile_count, cfg, rec_box=rec_box,
@@ -132,10 +134,10 @@ def render_frame(statics: FrameStatics, state, model_mats, mvp_mats,
     mode = surface_mode(statics, state.materials, atlas, light)
     consts = shade.pack_shade_consts(mode, state.materials, atlas, light,
                                      camera_pos)
-    rgba = shade.shade(vis_t, su, attrs_full, mode, consts, atlas=atlas,
-                       light=light, cfg=cfg, clear_color=st.clear_color,
-                       py_offset=tile_row0 * cfg.tile_h)
-    rgba8 = shade.resolve_and_pack(rgba, st.supersample, st.srgb_output)
+    rgba8 = shade.shade_pack_classic(
+        vis_t, rows, attrs_full, mode, consts, atlas=atlas, light=light,
+        cfg=cfg, clear_color=st.clear_color, supersample=st.supersample,
+        srgb=st.srgb_output, py_offset=tile_row0 * cfg.tile_h)
     on_stage("shade_pack")
     return rgba8, {"vis_d16": vis_d, "vis_tri": vis_t, **gstats, **bstats}
 

@@ -263,12 +263,12 @@ class Renderer:
         reference's ``warmup`` does; returns seconds spent.
 
         On a CUDA device, build (where no library is built yet) and load
-        the kernel libraries this renderer's route launches: K4's on the
-        classic route (plain-packed, so no K5), the front's (K8, K1, K6,
-        K2, K9), K3 / K3F's and K7's on the fused one, in row slabs too
-        (K7 follows K3F, which every fused frame on a card takes unless
-        "off" is named or the tables exceed its caps).  One nvcc process per source,
-        all started together, or one after another with ``parallel=False``.
+        the kernel libraries this renderer's route launches, in row slabs
+        too: ``_build.ROUTE_SOURCES``' entry for its pipeline (the classic
+        route's K8C, K10, K4 and K11, plain-packed, so no K5; the fused
+        route's front, K8, K1, K6, K2, K9, with K3 / K3F and K7).  One nvcc
+        process per source, all started together, or one after another
+        with ``parallel=False``.
         A CPU renderer builds nothing: its wrappers run the plain versions.
         Then, with ``execute``, render one frame at the default ``Camera()``
         and wait for the device.  ``verbose`` prints a line per stage on
@@ -285,11 +285,7 @@ class Renderer:
                       file=sys.stderr, flush=True)
 
         if self.device.type == "cuda":
-            sources = (("raster_classic.cu",)
-                       if self.settings.pipeline == "classic"
-                       else ("transform.cu", "setup.cu", "clip_tail.cu",
-                             "bincount.cu", "front_meta.cu", "raster.cu",
-                             "shade_pack.cu"))
+            sources = _build.ROUTE_SOURCES[self.settings.pipeline]
             for group in ((sources,) if parallel
                           else tuple((s,) for s in sources)):
                 _build.build(group)

@@ -34,6 +34,15 @@ class TriangleSetup:
     mat: torch.Tensor  # (S,) i32 material ids
 
 
+# The classic setup as one (S, SETUP_COLS) int32 table, floats as bits, as
+# kernel K10 writes it (``geometry.geometry_rows``): the fields shading
+# reads first (kernel K11 reads a winner's SETUP_SHADE_COLS words), then
+# the rest binning reads, then two zero words (80-byte rows).  ``valid``
+# is no column: it is a (S,) bool array beside the table.
+SETUP_ROW_FIELDS = ("x0 y0 x1 y1 x2 y2 inv_area2 iw0 iw1 iw2 v0 v1 v2 mat "
+                    "area2 zq0 zq1 zq2").split()
+SETUP_SHADE_COLS = 14
+SETUP_COLS = 20
 # the float32 fields of TriangleSetup ("valid" is bool, the rest int32)
 SETUP_F32_FIELDS = frozenset({"inv_area2", "iw0", "iw1", "iw2"})
 

@@ -13,7 +13,8 @@ lines and seconds; any failure raises and the exit code is non-zero):
    K3's and K3F's ``raster_kernel`` (at 8 and at 4 rows), K4's
    ``raster_classic_kernel``, K2's
    ``run_bounds_kernel``, K5's ``gather_tile_kernel``, K7's
-   ``shade_pack_kernel``, K8's ``transform_kernel`` or K9's
+   ``shade_pack_kernel``, K11's ``shade_classic_kernel``, K8's and K8C's
+   ``transform_kernel``, K10's ``vertex_kernel`` or K9's
    ``front_meta_kernel`` a stack frame or spills), and hold
    ``native.build_meshlets`` equal to the Python meshlets;
 3. each kernel against its plain torch version on the card, on config4 at
@@ -89,7 +90,8 @@ lines and seconds; any failure raises and the exit code is non-zero):
    port's numpy oracle and the same function on CPU tensors; the five
    pinned golden scenes and config4 at subdiv 5 and 8 under "off" (K3)
    and "on" (K3F) equal their sha256; K2, K3, K3F and K9 must have
-   launched, K1, K5 and K8 not; then K3 / K3F against their plain versions on the
+   launched, with K8C and K10 (the fallback's transform and setup), K1,
+   K5 and K8 not; then K3 / K3F against their plain versions on the
    fallback's own tables (gate scene, subdiv 8 static, subdiv 5 fly-by),
    and the subdiv-8 static uncached frame ms (median, mean, max) beside
    ``render_frame_fused_staged``'s, in turns, with the fallback's stage
@@ -266,7 +268,26 @@ lines and seconds; any failure raises and the exit code is non-zero):
    camera through ``Renderer``; a moving frame launches K8 and K9 once, a
    cached static frame neither (``route_kernels``).  Every frame that
    computes a fused front launches K8 and K9; the fallback's front (phase
-   14) launches K9, not K8.
+   14) launches K9, not K8;
+29. the classic route's glue, kernels K8C, K10 and K11
+   (``geometry.transform_vertices``, ``geometry.geometry_device``,
+   ``shade.shade_pack_classic``; ``--classic-glue`` runs phases 1, 2 and
+   29 alone): each against its plain version on the card, bit for bit
+   (clip and attribute rows; every TriangleSetup field, the combined
+   attributes and the counters; the RGBA8 frame of K4's visibility
+   buffer), on the gate scene at 800x600 on three orbit frames (the
+   first timed with CUDA events beside the plain chains, with the
+   bounds), the reference scene at 320x240, two clipping scenes under
+   "classic" (one within its budget, one over it), the ``ssaa_srgb``
+   and ``multi_material`` golden scenes under "classic", the second of
+   two row slabs of the reference scene, and config4 subdiv 5
+   meshlet-packed with its local corner ids (K10's corner rows through
+   K5); every frame EXACT against the port's oracle or its golden; one
+   gate frame, every plain version raising, launches K8C, K10, K4 and
+   K11 and no fused kernel (``route_kernels``), its device kernels a
+   frame counted by ``torch.profiler`` (fewer than the plain stages'
+   701), and one whole classic frame runs under
+   ``torch.cuda.set_sync_debug_mode("error")``.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -342,14 +363,16 @@ NO_FRAME_KERNELS = (("raster.cu", "raster_kernel", 4),
                     ("bincount.cu", "run_bounds_kernel", 1),
                     ("gather.cu", "gather_tile_kernel", 3),
                     ("shade_pack.cu", "shade_pack_kernel", 1),
-                    ("transform.cu", "transform_kernel", 1),
+                    ("shade_pack.cu", "shade_classic_kernel", 1),
+                    ("transform.cu", "transform_kernel", 2),
+                    ("geometry.cu", "vertex_kernel", 1),
                     ("front_meta.cu", "front_meta_kernel", 1))
 
 
 def check_frames(logs: dict) -> None:
     """ptxas's report: every kernel of ``NO_FRAME_KERNELS`` (K3 and K3F at
-    8 and 4 rows, K4, K2, K5, K7, K8, K9) must have no stack frame and no
-    spills."""
+    8 and 4 rows, K4, K2, K5, K7, K11, K8 and K8C, K10's vertex pass, K9)
+    must have no stack frame and no spills."""
     import re
 
     for src, kernel, want in NO_FRAME_KERNELS:
@@ -1279,9 +1302,9 @@ def fallback_checks(dev, card, errs: dict, head5, head8):
     counts = dict(_build.launches)
     say(json.dumps(counts, sort_keys=True))
     for k in ("K2_run_bounds", "K3_raster", "K3F_raster_shade",
-              "K9_front_meta"):
+              "K9_front_meta", "K8C_vertex_transform_rows", "K10_geometry"):
         require(counts.get(k, 0) > 0, f"{k} was not launched in phase 14")
-    # the fallback's transform is the classic setup's plain chain
+    # the fallback's transform and setup are the classic route's
     for k in ("K1_setup", "K5_gather_rows", "K8_vertex_transform"):
         require(counts.get(k, 0) == 0, f"{k} ran on the fallback route")
 
@@ -1863,10 +1886,15 @@ PLAIN_VERSIONS = (
     ("ops.shade_pack", "shade_pack_plain"),
     ("ops.vertex_transform", "transform_vertices_T_plain"),
     ("ops.front_meta", "front_meta_plain"),
+    ("ops.geometry", "transform_vertices_plain"),
+    ("ops.geometry", "geometry_device_plain"),
+    ("ops.shade", "shade_pack_classic_plain"),
 )
 SLAB_KERNELS = ("K1_setup", "K2_run_bounds", "K3_raster", "K3F_raster_shade",
                 "K4_raster_classic", "K5_gather_rows", "K6_clip_tail",
-                "K7_shade_pack", "K8_vertex_transform", "K9_front_meta")
+                "K7_shade_pack", "K8_vertex_transform", "K9_front_meta",
+                "K8C_vertex_transform_rows", "K10_geometry",
+                "K11_shade_pack_classic")
 
 
 class PlainVersionsRaise:
@@ -2737,7 +2765,9 @@ def transform_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
 
 def count_syncs(fn):
     """(``fn()``, the synchronizing CUDA calls it made: the messages of
-    ``torch.cuda.set_sync_debug_mode("warn")``)."""
+    ``torch.cuda.set_sync_debug_mode("warn")``, without the notice that
+    the mode is a prototype, which torch gives the first time a process
+    sets it)."""
     import warnings
 
     import torch
@@ -2751,7 +2781,8 @@ def count_syncs(fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return out, [str(w.message).splitlines()[0] for w in caught
-                 if "synchroniz" in str(w.message)]
+                 if "synchroniz" in str(w.message)
+                 and "prototype" not in str(w.message)]
 
 
 def front_meta_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
@@ -2863,6 +2894,378 @@ def front_meta_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
     del rt
     torch.cuda.synchronize()
     return {"K9": timed}
+
+
+# ---------------------------------------------------------------------------
+# Phase 29: the classic route's glue kernels K8C, K10 and K11
+# ---------------------------------------------------------------------------
+
+# operations a unit of work, counted from the sources: K8C's three matrix
+# products a vertex (64 fmul / fadd); K10's vertex snap and outcode (~60 a
+# vertex) and a triangle's classification and setup row (~40); K11's
+# interpolation of a covered render sample (~160: edges, weights, 12
+# attributes, uv derivatives) with the material (~4), the gate frame's
+# untextured, unlit mode
+K8C_OPS_PER_VERT = 64
+K10_OPS_PER_VERT = 60
+K10_OPS_PER_TRI = 40
+K11_OPS_PER_SAMPLE = 170
+GLUE_REPS = (10, 3)  # CUDA-event repetitions (kernel, plain)
+
+
+def frame_mats(r, cam):
+    """(model, MVP, camera position) tensors of renderer ``r``'s frame for
+    camera ``cam``, as ``Renderer.render_frame`` builds them."""
+    import numpy as np
+    import torch
+
+    from ash_renderer_tpu_torch.oracle.raster_cpu import compose_mvp
+
+    st = r.settings
+    mm = np.ascontiguousarray(r.scene.model_matrices(), np.float32)
+    mvp = compose_mvp(mm, cam.view_matrix(),
+                      cam.projection_matrix(st.render_width / st.render_height))
+    return (torch.from_numpy(mm).to(r.device),
+            torch.from_numpy(np.ascontiguousarray(mvp)).to(r.device),
+            torch.from_numpy(cam.position.astype(np.float32)).to(r.device))
+
+
+def _bits(x):
+    """A float / bool / int tensor's words as int32 (bool as 0 / 1)."""
+    import torch
+
+    if x.dtype == torch.bool:
+        return x.to(torch.int32)
+    return x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
+                      statics=None, local_tri=None, tile_row0: int = 0,
+                      tile_rows=None):
+    """K8C, K10 and K11 against their plain versions, bit for bit, on the
+    classic frame of renderer ``r``'s scene for camera ``cam`` (``statics``
+    the classic statics, by default ``classic_statics(r)``; ``local_tri``
+    takes K10's corner rows through K5; ``tile_rows`` the slab of that many
+    tile rows from ``tile_row0``): the transform's clip and attribute rows,
+    the setup table (``geometry_rows``, against ``setup_table`` of the
+    plain version's fields), the valid flags, the combined attributes and
+    the counters, and the RGBA8 frame of K4's visibility buffer.  Folds
+    each max |kernel - plain| into ``errs``.  Returns (the K11 frame on
+    the host, the counters as ints, {kernel: (ms, plain ms, None, (bound
+    ms, bound by))} with ``timed``)."""
+    import torch
+
+    from ash_renderer_tpu_torch import pipeline
+    from ash_renderer_tpu_torch.ops import (binning, geometry,
+                                            raster_visibility, shade)
+    from ash_renderer_tpu_torch.rtypes import (SETUP_ROW_FIELDS,
+                                               SETUP_SHADE_COLS)
+
+    statics = statics or classic_statics(r)
+    cfg, st, s = statics.cfg, statics.settings, r.state
+    mm_t, mvp_t, cam_t = frame_mats(r, cam)
+    kr, pr = GLUE_REPS if timed else (0, 0)
+    tv_args = (s.positions, s.vert_obj, s.normals, s.colors, s.uvs, mm_t,
+               mvp_t)
+    (clip, attrs), k8_ms = run_timed(
+        lambda: geometry.transform_vertices(*tv_args), kr)
+    (clip_p, attrs_p), p8_ms = run_timed(
+        lambda: geometry.transform_vertices_plain(*tv_args), pr)
+    err8 = _max_err([(_bits(clip), _bits(clip_p)),
+                     (_bits(attrs), _bits(attrs_p))])
+    require(err8 == 0, f"K8C differs from its plain version ({label}): {err8}")
+    errs["K8C"] = max(errs.get("K8C", 0), err8)
+
+    g_args = (clip, attrs, s.tri_v, s.tri_mat, cfg, st.clip_budget)
+    (rows, valid, af, gst), k10_ms = run_timed(
+        lambda: geometry.geometry_rows(*g_args, local_tri=local_tri), kr)
+    (su_p, af_p, gst_p), p10_ms = run_timed(
+        lambda: geometry.geometry_device_plain(*g_args, local_tri=local_tri),
+        pr)
+    err10 = _max_err([(rows, geometry.setup_table(su_p)),
+                      (_bits(valid), _bits(su_p.valid)),
+                      (_bits(af), _bits(af_p))])
+    counters = {k: int(v) for k, v in gst.items()}
+    want = {k: int(v) for k, v in gst_p.items()}
+    require(err10 == 0 and counters == want,
+            f"K10 differs from its plain version ({label}): {err10}, "
+            f"counters {counters} != {want}")
+    errs["K10"] = max(errs.get("K10", 0), err10)
+    del su_p, af_p
+
+    rec_i, rec_f, rec_box, start, count, bst = binning.bin_triangles(
+        geometry.setup_from_rows(rows, valid), cfg, st.max_pairs, tile_row0,
+        tile_rows)
+    _, vis_t = raster_visibility.rasterize_visibility(
+        rec_i, rec_f, start, count, cfg, rec_box=rec_box, tile_rows=tile_rows)
+    atlas = s.atlas if statics.has_atlas else None
+    light = s.light if statics.has_light else None
+    mode = pipeline.surface_mode(statics, s.materials, atlas, light)
+    consts = shade.pack_shade_consts(mode, s.materials, atlas, light, cam_t)
+    sh_kw = dict(atlas=atlas, light=light, cfg=cfg,
+                 clear_color=st.clear_color, supersample=st.supersample,
+                 srgb=st.srgb_output, py_offset=tile_row0 * cfg.tile_h)
+    rgba8, k11_ms = run_timed(lambda: shade.shade_pack_classic(
+        vis_t, rows, af, mode, consts, **sh_kw), kr)
+    rgba8_p, p11_ms = run_timed(lambda: shade.shade_pack_classic_plain(
+        vis_t, rows, af, mode, consts, **sh_kw), pr)
+    err11 = _max_err([(rgba8.to(torch.int32), rgba8_p.to(torch.int32))])
+    require(err11 == 0, f"K11 differs from its plain version ({label}): "
+            f"{err11} ({int((rgba8 != rgba8_p).any(-1).sum())} px)")
+    errs["K11"] = max(errs.get("K11", 0), err11)
+    covered = int((vis_t >= 0).sum())
+    say(f"{label}: K8C, K10{' (K5 corners)' if local_tri is not None else ''}"
+        f" and K11 bit-equal to plain; {clip.shape[0]} vertices, "
+        f"{s.tri_v.shape[0]} triangles, setup rows {gst['n_setup']}, "
+        f"clipped {counters['n_clipped']} (overflow "
+        f"{counters['clip_overflow']}), valid {counters['n_valid']}, covered "
+        f"samples {covered} of {vis_t.numel()}, "
+        f"{'sRGB ' if st.srgb_output else ''}SSAA {st.supersample}, "
+        f"mode {mode}")
+    timing = None
+    if timed:
+        v, t = clip.shape[0], s.tri_v.shape[0]
+        n_setup, b = gst["n_setup"], st.clip_budget
+        # K8C: positions, normals, colours, uvs, object ids read once, the
+        # clip and attribute rows written once
+        n8 = v * (12 + 12 + 16 + 8 + 4) + v * (16 + 48)
+        # K10, its function's inputs read once and outputs written once:
+        # clip and attribute rows, tri_v, tri_mat (and local_tri) read; the
+        # setup's fields (SETUP_ROW_FIELDS' words and the valid byte, not
+        # the table's zero words), the combined attribute rows and the
+        # counters written (not the vertex rows, scratch between its two
+        # launches)
+        n10 = (v * (16 + 48) + t * (12 + 4)
+               + (0 if local_tri is None else t * 12)
+               + n_setup * (4 * len(SETUP_ROW_FIELDS) + 1)
+               + (v + 9 * b) * 48 + 4 * len(geometry.COUNTERS))
+        # K11: the winner ids read, each distinct winner's shading words
+        # and corner rows once, 4 bytes a pixel written
+        win = vis_t[vis_t >= 0].unique()
+        n_win = int(win.numel())
+        n11 = (vis_t.numel() * 4 + n_win * (4 * SETUP_SHADE_COLS + 3 * 48)
+               + rgba8.numel())
+        timing = {
+            "K8C": (k8_ms, p8_ms, None,
+                    bound_ms(n8, v * K8C_OPS_PER_VERT)),
+            "K10": (k10_ms, p10_ms, None,
+                    bound_ms(n10, v * K10_OPS_PER_VERT
+                             + t * K10_OPS_PER_TRI)),
+            "K11": (k11_ms, p11_ms, None,
+                    bound_ms(n11, covered * K11_OPS_PER_SAMPLE)),
+        }
+        say(f"{label}: K11 reads {n_win} distinct winners; bytes K8C {n8}, "
+            f"K10 {n10}, K11 {n11}")
+    return rgba8.cpu().numpy(), counters, timing
+
+
+def _clip_scene(seed: int, nv: int, nt: int, spread: float, zoff: float):
+    """Random triangles (colours per vertex, one default material) around
+    the camera's near plane and guard band: clip candidates."""
+    import numpy as np
+
+    from ash_renderer_tpu_torch.scene import Mesh, Scene, SceneObject
+
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-spread, spread, (nv, 3)).astype(np.float32)
+    pos[:, 2] += zoff
+    sc = Scene()
+    sc.add_object(SceneObject(mesh=sc.add_mesh(Mesh(
+        positions=pos, indices=rng.integers(0, nv, (nt, 3)).astype(np.int32),
+        colors=rng.uniform(0, 1, (nv, 4)).astype(np.float32)))))
+    return sc
+
+
+def classic_launches_per_frame(r, cam, n: int = 4) -> float:
+    """Device kernels a frame of renderer ``r`` launches (``torch.profiler``
+    tracing the device alone over ``n`` frames after a warm one), copies
+    and memsets not counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    r.render_frame(cam)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            r.render_frame(cam)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels) / n
+
+
+def sources_launched(fn) -> set:
+    """The kernel sources (``_build.KERNELS``' keys) whose entry points
+    ``fn()`` launched."""
+    from ash_renderer_tpu_torch import _build
+
+    used, real = set(), _build.launch
+
+    def launch(kernel, entry, *args, **kw):
+        used.add(_build._ENTRY_SOURCE[entry])
+        return real(kernel, entry, *args, **kw)
+
+    _build.launch = launch
+    try:
+        fn()
+    finally:
+        _build.launch = real
+    return used
+
+
+def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
+    """Phase 29: K8C, K10 and K11 against their plain versions on the card
+    (``classic_glue_case``) on the gate scene at 800x600 on three orbit
+    frames (the first timed), the reference scene at 320x240, two clipping
+    scenes under "classic" (one within its budget, one over it), the
+    ``ssaa_srgb`` and ``multi_material`` golden scenes under "classic"
+    (textured, lit; 2x SSAA and sRGB), the second of two row slabs of the
+    reference scene, and the meshlet-packed ``r5`` (config4 subdiv 5) at
+    ``cam5`` with its local corner ids (K5; timed too, K10 with K5's
+    gather); every frame EXACT against the port's oracle or its golden.
+    Then one gate frame's launches (route ``classic``: K8C, K10, K4, K11,
+    no fused kernel), device kernels a frame (fewer than the 701 of the
+    plain stages), one whole classic frame (``pipeline.render_frame``,
+    its matrices on the card) under
+    ``torch.cuda.set_sync_debug_mode("error")``, and the Renderer's own
+    frame with no synchronizing call but its three uploads; the sources
+    whose kernels a classic frame and a fused one (``r5``'s own route)
+    launch are the route's in ``_build.ROUTE_SOURCES``, which
+    ``Renderer.warmup`` builds.  Returns the timing of the first gate
+    frame and the launch counts of the counted frames."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ash_renderer_tpu_torch import _build, pipeline
+    from ash_renderer_tpu_torch.benchmarks import GOLDEN_SCENES, GOLDEN_SHA
+    from ash_renderer_tpu_torch.camera import Camera, orbit_path
+    from ash_renderer_tpu_torch.config import RendererSettings
+    from ash_renderer_tpu_torch.parallel import make_render_mesh, slab_rows
+    from ash_renderer_tpu_torch.renderer import Renderer
+
+    classic = dict(pipeline="classic")
+    scene_g, _ = gate_scene()
+    rg = Renderer(scene_g, RendererSettings(), device=dev)
+    require(rg.settings.pipeline == "classic",
+            f"gate scene at 800x600: auto took {rg.settings.pipeline}")
+    orbit = orbit_path(N_FRAMES, radius=6.0, center=[0.0, 0.0, 3.5])
+    timing = None
+    for i in (0, 7, 15):
+        f, _, t = classic_glue_case(rg, orbit[i], f"gate 800x600 orbit {i}",
+                                    errs, timed=timing is None)
+        timing = timing or t
+        o, o_s = oracle_frame(rg, orbit[i])
+        require((f == o["rgba8"]).all(), f"gate orbit {i}: K11 frame != oracle")
+        fr = rg.read_frame(rg.render_frame(orbit[i])[0])
+        require((fr == f).all(), f"gate orbit {i}: Renderer frame != K11 frame")
+        say(f"gate orbit {i}: frame EXACT against the port's oracle "
+            f"({o_s:.1f} s)")
+    say_timing(card, timing, " (gate 800x600, orbit frame 0)")
+
+    ref_png = decode_png(os.path.join(ROOT, "tests", "golden",
+                                      "reference_320x240.png"))
+    ref_scene, ref_st = GOLDEN_SCENES["reference"]()
+    rref = Renderer(ref_scene, dataclasses.replace(ref_st, **classic),
+                    device=dev)
+    f, _, _ = classic_glue_case(rref, Camera(), "reference 320x240", errs)
+    require((f == ref_png).all(), "reference: K11 frame != golden PNG")
+    say("reference 320x240: frame EXACT against tests/golden/"
+        "reference_320x240.png")
+
+    for label, build, st in (
+            ("clip within budget", lambda: _clip_scene(6, 60, 50, 4.0, 0.8),
+             RendererSettings(width=128, height=64, clip_budget=64)),
+            ("clip over budget", lambda: _clip_scene(2, 170, 300, 8.0, 2.5),
+             RendererSettings(width=192, height=128, clip_budget=8))):
+        rc = Renderer(build(), dataclasses.replace(st, **classic), device=dev)
+        f, c, _ = classic_glue_case(rc, Camera(), label, errs)
+        require(c["n_clipped"] > 0, f"{label}: nothing clipped")
+        require((c["clip_overflow"] > 0) == ("over" in label),
+                f"{label}: overflow {c['clip_overflow']}")
+        o, _ = oracle_frame(rc, Camera())
+        require((f == o["rgba8"]).all(), f"{label}: K11 frame != oracle")
+        say(f"{label}: frame EXACT against the port's oracle")
+
+    for name in ("ssaa_srgb", "multi_material"):
+        scene_n, st_n = GOLDEN_SCENES[name]()
+        rn = Renderer(scene_n, dataclasses.replace(st_n, **classic),
+                      device=dev)
+        f, _, _ = classic_glue_case(rn, Camera(), name, errs)
+        require(sha(f) == GOLDEN_SHA[name], f"{name}: K11 frame != golden")
+        say(f"{name} (classic): golden sha256 EXACT")
+
+    r2 = Renderer(ref_scene, dataclasses.replace(ref_st, **classic),
+                  mesh=make_render_mesh([dev] * 2))
+    rows_per = slab_rows(r2.statics, 2)
+    classic_glue_case(rref, Camera(), "reference slab 2 of 2", errs,
+                      tile_row0=rows_per, tile_rows=rows_per)
+    f2 = r2.read_frame(r2.render_frame(Camera())[0])
+    require((f2 == ref_png).all(), "reference in 2 slabs != golden PNG")
+    say("reference 320x240 in 2 row slabs: frame EXACT against the golden")
+
+    require(r5.packed.local_tri is not None, "r5 is not meshlet-packed")
+    lt = torch.from_numpy(r5.packed.local_tri).to(dev)
+    f, _, t5 = classic_glue_case(r5, cam5, "config4 subdiv 5 meshlets", errs,
+                                 timed=True, local_tri=lt)
+    require(sha(f) == g5["sha256"], "classic subdiv 5 (K5 corners) != golden")
+    say("config4 subdiv 5, meshlet-packed (K5 corners): golden sha256 EXACT")
+    # K10's time here holds K5's corner gather between its two launches
+    say_timing(card, t5, " (config4 subdiv 5 meshlets, K10 with K5)")
+
+    # the route's launches: one gate frame, counts zeroed just before it
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    with PlainVersionsRaise():
+        rg.read_frame(rg.render_frame(orbit[3])[0])
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    say(f"gate frame launches: {json.dumps(counts, sort_keys=True)}; route "
+        + require_route("gate frame", counts, rg))
+    for label, r, cam in (("gate frame", rg, orbit[4]),
+                          ("config4 subdiv 5 frame", r5, orbit[4])):
+        used = sources_launched(lambda: r.read_frame(r.render_frame(cam)[0]))
+        want = set(_build.ROUTE_SOURCES[r.settings.pipeline])
+        require(used == want, f"{label}: launched the kernels of {sorted(used)}"
+                f", not the {r.settings.pipeline} route's {sorted(want)}")
+        say(f"{label} ({r.settings.pipeline}): its kernels' sources are "
+            f"_build.ROUTE_SOURCES[{r.settings.pipeline!r}]")
+    n_dev = classic_launches_per_frame(rg, orbit[3])
+    require(n_dev < 701, f"gate frame: {n_dev} device kernels a frame")
+    say(f"[{card}] gate frame (classic, 800x600): {n_dev:.1f} device "
+        "kernels a frame (the plain stages took 701)")
+    # one whole classic frame with its matrices on the card (the Renderer's
+    # uploads of them from the host are copies that synchronize)
+    mats = frame_mats(rg, orbit[5])
+    torch.cuda.synchronize()
+
+    def frame():
+        return pipeline.render_frame(rg.statics, rg.state, *mats)[0]
+
+    _, syncs = count_syncs(frame)
+    require(not syncs, f"gate frame: {len(syncs)} synchronizing calls"
+            + "".join(f"\n  {m}" for m in syncs))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fe = frame()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require((fe.cpu().numpy() == rg.read_frame(rg.render_frame(orbit[5])[0])
+             ).all(), "gate frame under sync debug mode != Renderer frame")
+    say("gate frame (pipeline.render_frame) under set_sync_debug_mode("
+        "\"error\"): no host read, equal to the Renderer's frame")
+    # the Renderer's own frame adds its three pageable uploads of the
+    # matrices and the camera position (ROADMAP queue 4 item 3)
+    _, r_syncs = count_syncs(lambda: rg.render_frame(orbit[5])[0])
+    require(len(r_syncs) <= 3, f"Renderer gate frame: {len(r_syncs)} "
+            "synchronizing calls, more than its three uploads")
+    say(f"gate frame (Renderer.render_frame): {len(r_syncs)} synchronizing "
+        "calls, at most its three uploads")
+    return timing, counts
 
 
 # the loss of the inverse-rendering example on the card against the CPU's:
@@ -3413,13 +3816,14 @@ def route_kernels(r, cached: bool = False):
     exactly where ``pipeline.shade_mode_for`` gives its statics a shade
     mode (the table caps included), and the front's kernels (K8, K1, K6,
     K2, K9) on a frame that computes its front, none on a ``cached`` one
-    (a front-cache hit).  The Renderer packs the classic route plainly, so
-    K5 is never among them."""
+    (a front-cache hit); on the classic route K8C, K10, K4 and K11, and no
+    fused kernel.  The Renderer packs the classic route plainly, so K5 is
+    never among them."""
     from ash_renderer_tpu_torch import pipeline
 
-    from ash_renderer_tpu_torch.ops import front_meta, vertex_transform
+    from ash_renderer_tpu_torch.ops import (front_meta, geometry, shade,
+                                            shade_pack, vertex_transform)
     from ash_renderer_tpu_torch.ops import fused_kernel as fk
-    from ash_renderer_tpu_torch.ops import shade_pack
 
     st = r.settings
     route = f"{st.pipeline} / {st.fused_surface_shade}"
@@ -3427,8 +3831,10 @@ def route_kernels(r, cached: bool = False):
                for f in (False, True)}  # K3 and K3F at 8 and 4 rows
     front = {vertex_transform.KERNEL, "K1_setup", "K6_clip_tail",
              "K2_run_bounds", front_meta.KERNEL}
+    classic = {geometry.KERNEL_TRANSFORM, geometry.KERNEL, "K4_raster_classic",
+               shade.KERNEL}
     if st.pipeline == "classic":
-        return route, {"K4_raster_classic"}, {
+        return route, classic, {
             "K5_gather_rows", shade_pack.KERNEL, *front, *rasters}
     s = r.state
     phase_f = pipeline.shade_mode_for(
@@ -3437,7 +3843,7 @@ def route_kernels(r, cached: bool = False):
     k3 = fk.kernel_name(r.cfg.tile_h, phase_f)
     shade_k = {shade_pack.KERNEL}
     must = {k3, *(shade_k if phase_f else ())}
-    must_not = {"K4_raster_classic", "K5_gather_rows", *(rasters - {k3}),
+    must_not = {"K5_gather_rows", *classic, *(rasters - {k3}),
                 *(() if phase_f else shade_k)}
     return route, must | (set() if cached else front), must_not | (
         front if cached else set())
@@ -3627,6 +4033,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shade-pack", action="store_true",
                     help="run phases 1, 2 and 26 alone (shade + pack, K7); "
                     "prints no kernels or ok line")
+    ap.add_argument("--classic-glue", action="store_true",
+                    help="run phases 1, 2 and 29 alone (the classic route's "
+                    "glue: K8C, K10, K11); prints no kernels or ok line")
     ap.add_argument("--front-glue", action="store_true",
                     help="run phases 1, 2, 27 and 28 alone (the vertex "
                     "transform K8, the expansion and range meta K9); prints "
@@ -3709,6 +4118,19 @@ def main(argv=None) -> int:
             timing.update(front_meta_checks(dev, card, errs, r8, cam8))
         return timing
 
+    def classic_glue_phase(errs, head5):
+        with Phase("29 the classic route's glue (K8C, K10, K11) vs plain"):
+            scene5, st5, cam5, g5 = head5
+            return classic_glue_checks(
+                dev, card, errs, Renderer(scene5, st5, device=dev), cam5, g5)
+
+    if args.classic_glue:
+        scene5, st5, cams5 = config4_million_tri(5)
+        classic_glue_phase({}, (scene5, st5, cams5[0],
+                                golden("headline_config4_s5.json")))
+        say(f"total {time.perf_counter() - t_start:.1f} s (phases 1, 2 and "
+            "29 alone)")
+        return 0
     if args.clip_tail:
         scene8, st8, _ = config4_million_tri(8)
         clip_tail_phase({}, Renderer(scene8, st8, device=dev))
@@ -4076,6 +4498,8 @@ def main(argv=None) -> int:
     timing.update(clip_tail_phase(errs, r8))
     timing.update(shade_pack_phase(errs, r8, cams8[0]))
     timing.update(front_glue_phases(errs, r8, cams8[0]))
+    timing_g, counts_g = classic_glue_phase(errs, (scene5, st5, cams5[0], g5))
+    timing.update(timing_g)
 
     meta = {
         "K1": ("K1_setup", "ash_renderer_tpu_torch/csrc/setup.cu",
@@ -4111,6 +4535,16 @@ def main(argv=None) -> int:
                "none (ash_renderer_tpu/pipeline.py:413, XLA glue)", counts),
         "K9": ("K9_front_meta", "ash_renderer_tpu_torch/csrc/front_meta.cu",
                "none (ash_renderer_tpu/pipeline.py:458, XLA glue)", counts),
+        # no Pallas kernel: the classic route's transform and setup, and its
+        # shade + pack, are XLA glue (_stage_geometry, _stage_shade)
+        "K8C": ("K8C_vertex_transform_rows",
+                "ash_renderer_tpu_torch/csrc/transform.cu",
+                "none (ash_renderer_tpu/pipeline.py:680, XLA glue)", counts_g),
+        "K10": ("K10_geometry", "ash_renderer_tpu_torch/csrc/geometry.cu",
+                "none (ash_renderer_tpu/pipeline.py:680, XLA glue)", counts_g),
+        "K11": ("K11_shade_pack_classic",
+                "ash_renderer_tpu_torch/csrc/shade_pack.cu",
+                "none (ash_renderer_tpu/pipeline.py:698, XLA glue)", counts_g),
     }
     kernels = []
     for k, (name, src, rep, n) in meta.items():

@@ -405,9 +405,8 @@ def test_warmup_without_execute_renders_nothing(monkeypatch):
 
 @pytest.mark.parametrize("parallel", [True, False])
 @pytest.mark.parametrize("pipeline,sources", [
-    ("fused", ("transform.cu", "setup.cu", "clip_tail.cu", "bincount.cu",
-               "front_meta.cu", "raster.cu", "shade_pack.cu")),
-    ("classic", ("raster_classic.cu",)),
+    ("fused", _build.ROUTE_SOURCES["fused"]),
+    ("classic", _build.ROUTE_SOURCES["classic"]),
 ])
 def test_warmup_on_a_card_builds_the_routes_libraries(pipeline, sources,
                                                       parallel, monkeypatch):
@@ -430,8 +429,9 @@ def test_warmup_on_a_card_builds_the_routes_libraries(pipeline, sources,
 def test_warmup_builds_the_cuda_auto_routes_libraries(config, monkeypatch):
     """A small scene's settings resolved by the CUDA branch of the auto
     rule (``renderer.auto_route``, called here without a card): warm-up
-    builds and loads the sources of the route it resolved to, the fused
-    route's seven (K7's with them) or classic's K4."""
+    builds and loads the sources of the route it resolved to
+    (``_build.ROUTE_SOURCES``: the fused route's seven, K7's with them, or
+    the classic route's K8C, K10, K4 and K11)."""
     from ash_renderer_tpu_torch.renderer import auto_route
 
     scene, settings, _ = benchmarks.ALL_CONFIGS[config]()
@@ -445,8 +445,79 @@ def test_warmup_builds_the_cuda_auto_routes_libraries(config, monkeypatch):
     monkeypatch.setattr(_build, "build", lambda s: calls.append(("build", s)))
     monkeypatch.setattr(_build, "load", lambda s: calls.append(("load", s)))
     r.warmup(execute=False)
-    sources = (("transform.cu", "setup.cu", "clip_tail.cu", "bincount.cu",
-                "front_meta.cu", "raster.cu", "shade_pack.cu")
-               if st.pipeline == "fused" else ("raster_classic.cu",))
+    sources = _build.ROUTE_SOURCES[st.pipeline]
     assert calls == [("build", sources)] + [("load", s) for s in sources]
     assert st.fused_surface_shade == "on"
+
+
+# each route's wrappers (module of ``ash_renderer_tpu_torch.ops``,
+# function) and the kernel each launches, as ``chip_smoke.route_kernels``
+# requires them of a frame; the Renderer packs the classic route plainly,
+# so K5 is not among them
+ROUTE_WRAPPERS = {
+    "classic": {("geometry", "transform_vertices"): "K8C",
+                ("geometry", "geometry_rows"): "K10",
+                ("raster_visibility", "rasterize_visibility"): "K4",
+                ("shade", "shade_pack_classic"): "K11"},
+    "fused": {("vertex_transform", "transform_vertices_T"): "K8",
+              ("setup_kernel", "triangle_setup"): "K1",
+              ("clip_tail", "clip_tail"): "K6",
+              ("bincount", "sorted_run_bounds"): "K2",
+              ("front_meta", "front_meta"): "K9",
+              ("fused_kernel", "rasterize_distribute"): "K3",
+              ("shade_pack", "shade_pack"): "K7"},
+}
+
+
+def _launches_of(module, fn_name):
+    """(kernel name or None, entry point) of each ``_build.launch`` call in
+    ``module``'s function ``fn_name``; a kernel name given by a module
+    constant is resolved, one computed by a call is None."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(module))
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == fn_name)
+    out = []
+    for c in ast.walk(fn):
+        if (isinstance(c, ast.Call) and isinstance(c.func, ast.Attribute)
+                and c.func.attr == "launch"
+                and getattr(c.func.value, "id", None) == "_build"):
+            name = c.args[0]
+            out.append((getattr(module, name.id)
+                        if isinstance(name, ast.Name) else None,
+                        c.args[1].value))
+    return out
+
+
+@pytest.mark.parametrize("route", sorted(ROUTE_WRAPPERS))
+def test_route_sources_hold_the_routes_kernels(route):
+    """``_build.ROUTE_SOURCES[route]``, which ``Renderer.warmup`` builds,
+    is the set of sources of the entry points the route's wrappers launch
+    (``_build._ENTRY_SOURCE``), each wrapper's kernel name the one the
+    route's frame counts (K3 and K3F at both tile heights for K3's
+    wrapper); on the classic route ``pipeline.render_frame``
+    calls each of them."""
+    import importlib
+    import inspect
+
+    from ash_renderer_tpu_torch.ops import fused_kernel as fk
+
+    sources = set()
+    for (mod, fn), kernel in ROUTE_WRAPPERS[route].items():
+        module = importlib.import_module(f"ash_renderer_tpu_torch.ops.{mod}")
+        launches = _launches_of(module, fn)
+        assert launches, f"{mod}.{fn} launches nothing"
+        for name, entry in launches:
+            names = ({fk.kernel_name(th, f) for th in fk.TILE_HEIGHTS
+                      for f in (False, True)} if name is None else {name})
+            # K3's entry is K3 or K3F by its shade flag
+            assert all(n.split("_")[0] in (kernel, kernel + "F")
+                       for n in names), (fn, names)
+            sources.add(_build._ENTRY_SOURCE[entry])
+    assert sources == set(_build.ROUTE_SOURCES[route])
+    if route == "classic":
+        body = inspect.getsource(pl.render_frame)
+        for mod, fn in ROUTE_WRAPPERS[route]:
+            assert f"{mod}.{fn}(" in body, fn
