@@ -125,6 +125,13 @@ KERNELS = {
         # height, ss, min_c, wide_rows, wide_pairs, s_rows, stream
         "ash_front_meta": [_P] * 16 + [_I] * 13 + [_P],
     },
+    "binning.cu": {
+        # rows, valid, crect, cmeta, chunk_sums (scratch), rec, tile_start,
+        # tile_count, stats, s_rows, max_pairs, n_tiles, grid_w, tile_w,
+        # tile_h, row0, py_lo, py_hi (the tile-row window), width, height,
+        # ss, stream
+        "ash_bin_triangles": [_P] * 9 + [_I] * 12 + [_P],
+    },
     "gather.cu": {
         # tbl, local_tri, out, n_tris, n_cols, stream
         "ash_gather_tri_rows": [_P] * 3 + [_I] * 2 + [_P],
@@ -134,12 +141,12 @@ KERNELS = {
 }
 _ENTRY_SOURCE = {e: s for s, entries in KERNELS.items() for e in entries}
 # route -> the kernel sources its frames launch on a card, which
-# ``Renderer.warmup`` builds: the classic route's K8C, K10, K4 and K11
-# (the Renderer packs it plainly, so K5's gather.cu is not among them);
+# ``Renderer.warmup`` builds: the classic route's K8C, K10, K12, K4 and
+# K11 (the Renderer packs it plainly, so K5's gather.cu is not among them);
 # the fused route's front (K8, K1, K6, K2, K9), K3 / K3F and K7
 ROUTE_SOURCES = {
-    "classic": ("transform.cu", "geometry.cu", "raster_classic.cu",
-                "shade_pack.cu"),
+    "classic": ("transform.cu", "geometry.cu", "binning.cu",
+                "raster_classic.cu", "shade_pack.cu"),
     "fused": ("transform.cu", "setup.cu", "clip_tail.cu", "bincount.cu",
               "front_meta.cu", "raster.cu", "shade_pack.cu"),
 }

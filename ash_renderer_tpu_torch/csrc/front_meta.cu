@@ -105,54 +105,6 @@ __device__ __forceinline__ int pairs_of(const int4& r) {
   return (r.y - r.x + 1) * (r.w - r.z + 1);
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-// sum of v over the block; every thread gets it
-__device__ __forceinline__ int block_sum(int v, int* red) {
-  v = warp_sum(v);
-  __syncthreads();  // red may still be read from a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int s = 0;
-#pragma unroll
-  for (int w = 0; w < N_WARPS; ++w) s += red[w];
-  return s;
-}
-
-// exclusive prefix of v over the block and the block's total
-__device__ __forceinline__ int block_scan(int v, int* red, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int n = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl += n;
-  }
-  __syncthreads();
-  if (lane == 31) red[warp] = incl;
-  __syncthreads();
-  int before = 0, all = 0;
-#pragma unroll
-  for (int w = 0; w < N_WARPS; ++w) {
-    before += w < warp ? red[w] : 0;
-    all += red[w];
-  }
-  *total = all;
-  return before + incl - v;
-}
-
-// the sum over the block of x[k * stride + off] for k < n
-__device__ __forceinline__ int block_sum_of(const int* x, int n, int stride,
-                                            int off, int* red) {
-  int s = 0;
-  for (int k = threadIdx.x; k < n; k += THREADS) s += x[k * stride + off];
-  return block_sum(s, red);
-}
-
 // comb row `row`'s record: columns 0-3, then 4, 5, the row's index and 0.
 // The index is the row's ID_COL word (K1, K6 and build_comb_table write
 // each row's own index there, and K3's phase D reads the winner's row by
@@ -273,7 +225,7 @@ front_meta_kernel(MetaParams P) {
       P.wrec[2 * i + 1] = rb;
       pairs = pairs_of(r);
     }
-    const int tot = block_sum(pairs, red);
+    const int tot = block_sum<THREADS>(pairs, red);
     if (tid == 0) P.chunk_sums[c * N_CHUNK_SUMS + C_PAIRS] = tot;
   }
   grid.sync();
@@ -284,17 +236,17 @@ front_meta_kernel(MetaParams P) {
   // hundreds of atomic adds would hold the block)
   for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
     const int before =
-        block_sum_of(P.chunk_sums, c, N_CHUNK_SUMS, C_PAIRS, red);
+        block_sum_of<THREADS>(P.chunk_sums, c, N_CHUNK_SUMS, C_PAIRS, red);
     const int i = c * THREADS + tid;
     const int4 r = i < n_live ? P.rects[i] : dead;
     const int cnt = pairs_of(r);
     int all;
-    const int incl = block_scan(cnt, red, &all) + cnt;
+    const int incl = block_scan<THREADS>(cnt, red, &all) + cnt;
     // the inclusive ends are non-decreasing, so the rows within the budget
     // are a prefix
     const bool fit = i < n_live && before + incl <= P.wide_pairs;
-    const int n_fit = block_sum(fit ? 1 : 0, red);
-    const int fit_pairs = block_sum(fit ? cnt : 0, red);
+    const int n_fit = block_sum<THREADS>(fit ? 1 : 0, red);
+    const int fit_pairs = block_sum<THREADS>(fit ? cnt : 0, red);
     if (tid == 0) {
       P.chunk_sums[c * N_CHUNK_SUMS + C_FIT] = n_fit;
       P.chunk_sums[c * N_CHUNK_SUMS + C_FIT_PAIRS] = fit_pairs;
@@ -323,10 +275,10 @@ front_meta_kernel(MetaParams P) {
   grid.sync();
 
   // 2. every block: the cut's totals; then its tile rows
-  const int n_fit = block_sum_of(P.chunk_sums, n_chunks, N_CHUNK_SUMS, C_FIT,
-                                 red);
-  const int n_pairs = block_sum_of(P.chunk_sums, n_chunks, N_CHUNK_SUMS,
-                                   C_FIT_PAIRS, red);
+  const int n_fit = block_sum_of<THREADS>(P.chunk_sums, n_chunks,
+                                          N_CHUNK_SUMS, C_FIT, red);
+  const int n_pairs = block_sum_of<THREADS>(P.chunk_sums, n_chunks,
+                                            N_CHUNK_SUMS, C_FIT_PAIRS, red);
   const int new_ws = ws + n_fit;
   if (blockIdx.x == 0 && tid == 0) {
     P.meta[M_WS] = ws;
@@ -341,10 +293,10 @@ front_meta_kernel(MetaParams P) {
   const unsigned lt = (1u << lane) - 1u;
   for (int ty = blockIdx.x; ty < tile_rows; ty += gridDim.x) {
     const int t0 = ty * P.grid_w;
-    const int base = block_sum_of(P.row_cnt, ty, 1, 0, red);
+    const int base = block_sum_of<THREADS>(P.row_cnt, ty, 1, 0, red);
     const int cnt = tid < P.grid_w ? P.tile_cnt[t0 + tid] : 0;
     int row_all;
-    const int start = base + block_scan(cnt, red, &row_all);
+    const int start = base + block_scan<THREADS>(cnt, red, &row_all);
     if (tid < P.grid_w) {
       s_start[tid] = start;
       s_cnt[tid] = cnt;
@@ -370,7 +322,7 @@ front_meta_kernel(MetaParams P) {
         n_on += r[k].z <= ty && ty <= r[k].w;
       }
       int m;  // block_scan syncs: the last step's readers are done
-      int pos = block_scan(n_on, red, &m);
+      int pos = block_scan<THREADS>(n_on, red, &m);
 #pragma unroll
       for (int k = 0; k < WALK_ROWS; ++k) {
         if (r[k].z <= ty && ty <= r[k].w) {

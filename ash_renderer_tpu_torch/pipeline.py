@@ -4,8 +4,8 @@ The counterpart of ``ash_renderer_tpu/pipeline.py``'s two pipelines.  The
 classic one (``render_frame``, which the Renderer takes for small scenes):
 vertex transform (kernel K8C, ``geometry.transform_vertices``), triangle
 setup as one table of rows (kernel K10, ``geometry.geometry_rows``, with
-kernel K5 on a meshlet-packed scene), tile binning
-(``binning.bin_triangles``, plain torch), visibility raster (kernel K4,
+kernel K5 on a meshlet-packed scene), tile binning from that table (kernel
+K12, ``binning.bin_rows``), visibility raster (kernel K4,
 ``raster_visibility.rasterize_visibility``), per-pixel winner gather,
 shading, resolve + pack (kernel K11, ``shade.shade_pack_classic``).
 
@@ -120,9 +120,8 @@ def render_frame(statics: FrameStatics, state, model_mats, mvp_mats,
         local_tri=local_tri,
     )
     on_stage("geometry")
-    rec_i, rec_f, rec_box, tile_start, tile_count, bstats = (
-        binning.bin_triangles(geometry.setup_from_rows(rows, valid), cfg,
-                              st.max_pairs, tile_row0, tile_rows))
+    rec_i, rec_f, rec_box, tile_start, tile_count, bstats = binning.bin_rows(
+        rows, valid, cfg, st.max_pairs, tile_row0, tile_rows)
     on_stage("binning")
     vis_d, vis_t = raster_visibility.rasterize_visibility(
         rec_i, rec_f, tile_start, tile_count, cfg, rec_box=rec_box,

@@ -14,8 +14,9 @@ lines and seconds; any failure raises and the exit code is non-zero):
    ``raster_classic_kernel``, K2's
    ``run_bounds_kernel``, K5's ``gather_tile_kernel``, K7's
    ``shade_pack_kernel``, K11's ``shade_classic_kernel``, K8's and K8C's
-   ``transform_kernel``, K10's ``vertex_kernel`` or K9's
-   ``front_meta_kernel`` a stack frame or spills), and hold
+   ``transform_kernel``, K10's ``vertex_kernel``, K9's
+   ``front_meta_kernel`` or K12's ``bin_kernel`` a stack frame or
+   spills), and hold
    ``native.build_meshlets`` equal to the Python meshlets;
 3. each kernel against its plain torch version on the card, on config4 at
    subdiv 5 (20,480 triangles, 1080p), at the static camera and at a
@@ -269,25 +270,27 @@ lines and seconds; any failure raises and the exit code is non-zero):
    cached static frame neither (``route_kernels``).  Every frame that
    computes a fused front launches K8 and K9; the fallback's front (phase
    14) launches K9, not K8;
-29. the classic route's glue, kernels K8C, K10 and K11
+29. the classic route's glue, kernels K8C, K10, K12 and K11
    (``geometry.transform_vertices``, ``geometry.geometry_device``,
-   ``shade.shade_pack_classic``; ``--classic-glue`` runs phases 1, 2 and
-   29 alone): each against its plain version on the card, bit for bit
-   (clip and attribute rows; every TriangleSetup field, the combined
-   attributes and the counters; the RGBA8 frame of K4's visibility
-   buffer), on the gate scene at 800x600 on three orbit frames (the
-   first timed with CUDA events beside the plain chains, with the
-   bounds), the reference scene at 320x240, two clipping scenes under
-   "classic" (one within its budget, one over it), the ``ssaa_srgb``
-   and ``multi_material`` golden scenes under "classic", the second of
-   two row slabs of the reference scene, and config4 subdiv 5
-   meshlet-packed with its local corner ids (K10's corner rows through
-   K5); every frame EXACT against the port's oracle or its golden; one
-   gate frame, every plain version raising, launches K8C, K10, K4 and
-   K11 and no fused kernel (``route_kernels``), its device kernels a
-   frame counted by ``torch.profiler`` (fewer than the plain stages'
-   701), and one whole classic frame runs under
-   ``torch.cuda.set_sync_debug_mode("error")``.
+   ``binning.bin_rows``, ``shade.shade_pack_classic``; ``--classic-glue``
+   runs phases 1, 2 and 29 alone): each against its plain version on the
+   card, bit for bit (clip and attribute rows; every TriangleSetup field,
+   the combined attributes and the counters; every record, box, tile
+   start and count and the pair counters, entry for entry; the RGBA8
+   frame of K4's visibility buffer on K12's records), on the gate scene
+   at 800x600 on three orbit frames (the first timed with CUDA events
+   beside the plain chains, with the bounds, and binned again at
+   ``max_pairs`` 128, which cuts its pairs), the reference scene at
+   320x240, two clipping scenes under "classic" (one within its budget,
+   one over it), the ``ssaa_srgb`` and ``multi_material`` golden scenes
+   under "classic", the second of two row slabs of the reference scene,
+   and config4 subdiv 5 meshlet-packed with its local corner ids (K10's
+   corner rows through K5); every frame EXACT against the port's oracle
+   or its golden; one gate frame, every plain version raising, launches
+   K8C, K10, K12, K4 and K11 and no fused kernel (``route_kernels``), its
+   device kernels a frame counted by ``torch.profiler`` (fewer than the
+   186 of the frame with plain binning), and one whole classic frame runs
+   under ``torch.cuda.set_sync_debug_mode("error")``.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -366,13 +369,14 @@ NO_FRAME_KERNELS = (("raster.cu", "raster_kernel", 4),
                     ("shade_pack.cu", "shade_classic_kernel", 1),
                     ("transform.cu", "transform_kernel", 2),
                     ("geometry.cu", "vertex_kernel", 1),
-                    ("front_meta.cu", "front_meta_kernel", 1))
+                    ("front_meta.cu", "front_meta_kernel", 1),
+                    ("binning.cu", "bin_kernel", 1))
 
 
 def check_frames(logs: dict) -> None:
     """ptxas's report: every kernel of ``NO_FRAME_KERNELS`` (K3 and K3F at
-    8 and 4 rows, K4, K2, K5, K7, K11, K8 and K8C, K10's vertex pass, K9)
-    must have no stack frame and no spills."""
+    8 and 4 rows, K4, K2, K5, K7, K11, K8 and K8C, K10's vertex pass, K9,
+    K12) must have no stack frame and no spills."""
     import re
 
     for src, kernel, want in NO_FRAME_KERNELS:
@@ -1889,12 +1893,13 @@ PLAIN_VERSIONS = (
     ("ops.geometry", "transform_vertices_plain"),
     ("ops.geometry", "geometry_device_plain"),
     ("ops.shade", "shade_pack_classic_plain"),
+    ("ops.binning", "bin_triangles_plain"),
 )
 SLAB_KERNELS = ("K1_setup", "K2_run_bounds", "K3_raster", "K3F_raster_shade",
                 "K4_raster_classic", "K5_gather_rows", "K6_clip_tail",
                 "K7_shade_pack", "K8_vertex_transform", "K9_front_meta",
                 "K8C_vertex_transform_rows", "K10_geometry",
-                "K11_shade_pack_classic")
+                "K11_shade_pack_classic", "K12_binning")
 
 
 class PlainVersionsRaise:
@@ -2897,7 +2902,7 @@ def front_meta_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 29: the classic route's glue kernels K8C, K10 and K11
+# Phase 29: the classic route's glue kernels K8C, K10, K12 and K11
 # ---------------------------------------------------------------------------
 
 # operations a unit of work, counted from the sources: K8C's three matrix
@@ -2939,25 +2944,82 @@ def _bits(x):
     return x.contiguous().view(torch.int32) if x.dtype == torch.float32 else x
 
 
+# K12's bound: a valid setup row's 11 words read (x0-y2, inv_area2, area2,
+# zq0-2; an invalid row needs its valid byte alone); operations counted
+# from the source: a valid row's AABB, window clamps and rectangle (~20),
+# a kept pair's record (~60: three edges, two edge values, E2c, the AABB
+# again and the box)
+K12_ROW_WORDS = 11
+K12_OPS_PER_ROW = 20
+K12_OPS_PER_PAIR = 60
+
+
+def k12_case(rows, valid, cfg, max_pairs: int, label: str, errs: dict,
+             tile_row0: int = 0, tile_rows=None, reps=(0, 0)):
+    """K12 (``binning.bin_rows``) against its plain version
+    (``bin_triangles_plain`` on the table's column views), entry for
+    entry: the records, inv_area2's bits, the boxes, the tile starts and
+    counts, and the counters.  Folds the max |kernel - plain| into
+    ``errs``.  Returns (K12's outputs, with ``reps`` (ms, plain ms, None,
+    (bound ms, bound by)), else None)."""
+    from ash_renderer_tpu_torch.ops import binning, geometry
+
+    args = (cfg, max_pairs, tile_row0, tile_rows)
+    out, k_ms = run_timed(lambda: binning.bin_rows(rows, valid, *args),
+                          reps[0])
+    want, p_ms = run_timed(lambda: binning.bin_triangles_plain(
+        geometry.setup_from_rows(rows, valid), *args), reps[1])
+    *arrs, stats = out
+    *w_arrs, w_stats = want
+    same_shapes = all(a.shape == b.shape and a.dtype == b.dtype
+                      for a, b in zip(arrs, w_arrs))
+    err = (_max_err([(_bits(a), _bits(b)) for a, b in zip(arrs, w_arrs)])
+           if same_shapes else -1)
+    got_c = {k: int(v) for k, v in stats.items()}
+    want_c = {k: int(v) for k, v in w_stats.items()}
+    require(same_shapes and err == 0 and got_c == want_c,
+            f"K12 differs from its plain version ({label}): {err}, "
+            f"counters {got_c} != {want_c}")
+    errs["K12"] = max(errs.get("K12", 0), err)
+    tile_count = arrs[4]
+    n_kept = int(tile_count.sum())
+    say(f"{label}: K12 bit-equal to plain; pairs {got_c['pairs_total']} "
+        f"(overflow {got_c['pairs_overflow']}), {n_kept} of {max_pairs} "
+        f"record columns live, {tile_count.numel()} tiles (max "
+        f"{int(tile_count.max())} a tile)")
+    if not reps[0]:
+        return out, None
+    n_valid = int(valid.sum())
+    # inputs read once, outputs written once: the valid rows' words and
+    # every valid byte; every record column's 16 words, each tile's start
+    # and count, the two counters
+    n_bytes = (n_valid * 4 * K12_ROW_WORDS + valid.numel()
+               + max_pairs * 4 * binning.REC_ALL_ROWS
+               + tile_count.numel() * 8 + 8)
+    n_ops = n_valid * K12_OPS_PER_ROW + n_kept * K12_OPS_PER_PAIR
+    return out, (k_ms, p_ms, None, bound_ms(n_bytes, n_ops))
+
+
 def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
                       statics=None, local_tri=None, tile_row0: int = 0,
-                      tile_rows=None):
-    """K8C, K10 and K11 against their plain versions, bit for bit, on the
-    classic frame of renderer ``r``'s scene for camera ``cam`` (``statics``
-    the classic statics, by default ``classic_statics(r)``; ``local_tri``
-    takes K10's corner rows through K5; ``tile_rows`` the slab of that many
-    tile rows from ``tile_row0``): the transform's clip and attribute rows,
-    the setup table (``geometry_rows``, against ``setup_table`` of the
-    plain version's fields), the valid flags, the combined attributes and
-    the counters, and the RGBA8 frame of K4's visibility buffer.  Folds
-    each max |kernel - plain| into ``errs``.  Returns (the K11 frame on
-    the host, the counters as ints, {kernel: (ms, plain ms, None, (bound
-    ms, bound by))} with ``timed``)."""
+                      tile_rows=None, cut_pairs: int = 0):
+    """K8C, K10, K12 and K11 against their plain versions, bit for bit, on
+    the classic frame of renderer ``r``'s scene for camera ``cam``
+    (``statics`` the classic statics, by default ``classic_statics(r)``;
+    ``local_tri`` takes K10's corner rows through K5; ``tile_rows`` the
+    slab of that many tile rows from ``tile_row0``): the transform's clip
+    and attribute rows, the setup table (``geometry_rows``, against
+    ``setup_table`` of the plain version's fields), the valid flags, the
+    combined attributes and the counters, K12's binning of that table
+    (``k12_case``; with ``cut_pairs``, also at that budget, which must cut
+    the frame's pairs), and the RGBA8 frame of K4's visibility buffer on
+    K12's records.  Folds each max |kernel - plain| into ``errs``.
+    Returns (the K11 frame on the host, the counters as ints, {kernel:
+    (ms, plain ms, None, (bound ms, bound by))} with ``timed``)."""
     import torch
 
     from ash_renderer_tpu_torch import pipeline
-    from ash_renderer_tpu_torch.ops import (binning, geometry,
-                                            raster_visibility, shade)
+    from ash_renderer_tpu_torch.ops import geometry, raster_visibility, shade
     from ash_renderer_tpu_torch.rtypes import (SETUP_ROW_FIELDS,
                                                SETUP_SHADE_COLS)
 
@@ -2993,9 +3055,15 @@ def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
     errs["K10"] = max(errs.get("K10", 0), err10)
     del su_p, af_p
 
-    rec_i, rec_f, rec_box, start, count, bst = binning.bin_triangles(
-        geometry.setup_from_rows(rows, valid), cfg, st.max_pairs, tile_row0,
-        tile_rows)
+    (rec_i, rec_f, rec_box, start, count, _), t12 = k12_case(
+        rows, valid, cfg, st.max_pairs, label, errs, tile_row0, tile_rows,
+        (kr, pr))
+    if cut_pairs:
+        cut, _ = k12_case(rows, valid, cfg, cut_pairs,
+                          f"{label}, max_pairs {cut_pairs}", errs, tile_row0,
+                          tile_rows)
+        require(int(cut[-1]["pairs_overflow"]) > 0,
+                f"{label}: max_pairs {cut_pairs} cuts no pair")
     _, vis_t = raster_visibility.rasterize_visibility(
         rec_i, rec_f, start, count, cfg, rec_box=rec_box, tile_rows=tile_rows)
     atlas = s.atlas if statics.has_atlas else None
@@ -3015,7 +3083,7 @@ def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
     errs["K11"] = max(errs.get("K11", 0), err11)
     covered = int((vis_t >= 0).sum())
     say(f"{label}: K8C, K10{' (K5 corners)' if local_tri is not None else ''}"
-        f" and K11 bit-equal to plain; {clip.shape[0]} vertices, "
+        f", K12 and K11 bit-equal to plain; {clip.shape[0]} vertices, "
         f"{s.tri_v.shape[0]} triangles, setup rows {gst['n_setup']}, "
         f"clipped {counters['n_clipped']} (overflow "
         f"{counters['clip_overflow']}), valid {counters['n_valid']}, covered "
@@ -3053,6 +3121,7 @@ def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
                              + t * K10_OPS_PER_TRI)),
             "K11": (k11_ms, p11_ms, None,
                     bound_ms(n11, covered * K11_OPS_PER_SAMPLE)),
+            "K12": t12,
         }
         say(f"{label}: K11 reads {n_win} distinct winners; bytes K8C {n8}, "
             f"K10 {n10}, K11 {n11}")
@@ -3115,19 +3184,26 @@ def sources_launched(fn) -> set:
     return used
 
 
+# a pair budget that cuts the gate frame's pairs inside a triangle's
+# rectangle (phase 29 holds K12 to its plain version there)
+GATE_CUT_PAIRS = 128
+
+
 def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
-    """Phase 29: K8C, K10 and K11 against their plain versions on the card
-    (``classic_glue_case``) on the gate scene at 800x600 on three orbit
-    frames (the first timed), the reference scene at 320x240, two clipping
+    """Phase 29: K8C, K10, K12 and K11 against their plain versions on the
+    card (``classic_glue_case``) on the gate scene at 800x600 on three
+    orbit frames (the first timed, and K12 on it at ``GATE_CUT_PAIRS``
+    too), the reference scene at 320x240, two clipping
     scenes under "classic" (one within its budget, one over it), the
     ``ssaa_srgb`` and ``multi_material`` golden scenes under "classic"
     (textured, lit; 2x SSAA and sRGB), the second of two row slabs of the
     reference scene, and the meshlet-packed ``r5`` (config4 subdiv 5) at
     ``cam5`` with its local corner ids (K5; timed too, K10 with K5's
     gather); every frame EXACT against the port's oracle or its golden.
-    Then one gate frame's launches (route ``classic``: K8C, K10, K4, K11,
-    no fused kernel), device kernels a frame (fewer than the 701 of the
-    plain stages), one whole classic frame (``pipeline.render_frame``,
+    Then one gate frame's launches (route ``classic``: K8C, K10, K12, K4,
+    K11, no fused kernel), device kernels a frame (fewer than the 186 of
+    the frame with plain binning), one whole classic frame
+    (``pipeline.render_frame``,
     its matrices on the card) under
     ``torch.cuda.set_sync_debug_mode("error")``, and the Renderer's own
     frame with no synchronizing call but its three uploads; the sources
@@ -3156,7 +3232,8 @@ def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
     timing = None
     for i in (0, 7, 15):
         f, _, t = classic_glue_case(rg, orbit[i], f"gate 800x600 orbit {i}",
-                                    errs, timed=timing is None)
+                                    errs, timed=timing is None,
+                                    cut_pairs=GATE_CUT_PAIRS if i == 0 else 0)
         timing = timing or t
         o, o_s = oracle_frame(rg, orbit[i])
         require((f == o["rgba8"]).all(), f"gate orbit {i}: K11 frame != oracle")
@@ -3234,9 +3311,10 @@ def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
         say(f"{label} ({r.settings.pipeline}): its kernels' sources are "
             f"_build.ROUTE_SOURCES[{r.settings.pipeline!r}]")
     n_dev = classic_launches_per_frame(rg, orbit[3])
-    require(n_dev < 701, f"gate frame: {n_dev} device kernels a frame")
+    require(n_dev < 186, f"gate frame: {n_dev} device kernels a frame")
     say(f"[{card}] gate frame (classic, 800x600): {n_dev:.1f} device "
-        "kernels a frame (the plain stages took 701)")
+        "kernels a frame (186 with plain binning, 701 with every glue "
+        "stage plain)")
     # one whole classic frame with its matrices on the card (the Renderer's
     # uploads of them from the host are copies that synchronize)
     mats = frame_mats(rg, orbit[5])
@@ -3816,13 +3894,14 @@ def route_kernels(r, cached: bool = False):
     exactly where ``pipeline.shade_mode_for`` gives its statics a shade
     mode (the table caps included), and the front's kernels (K8, K1, K6,
     K2, K9) on a frame that computes its front, none on a ``cached`` one
-    (a front-cache hit); on the classic route K8C, K10, K4 and K11, and no
-    fused kernel.  The Renderer packs the classic route plainly, so K5 is
-    never among them."""
+    (a front-cache hit); on the classic route K8C, K10, K12, K4 and K11,
+    and no fused kernel.  The Renderer packs the classic route plainly, so
+    K5 is never among them."""
     from ash_renderer_tpu_torch import pipeline
 
-    from ash_renderer_tpu_torch.ops import (front_meta, geometry, shade,
-                                            shade_pack, vertex_transform)
+    from ash_renderer_tpu_torch.ops import (binning, front_meta, geometry,
+                                            shade, shade_pack,
+                                            vertex_transform)
     from ash_renderer_tpu_torch.ops import fused_kernel as fk
 
     st = r.settings
@@ -3831,8 +3910,8 @@ def route_kernels(r, cached: bool = False):
                for f in (False, True)}  # K3 and K3F at 8 and 4 rows
     front = {vertex_transform.KERNEL, "K1_setup", "K6_clip_tail",
              "K2_run_bounds", front_meta.KERNEL}
-    classic = {geometry.KERNEL_TRANSFORM, geometry.KERNEL, "K4_raster_classic",
-               shade.KERNEL}
+    classic = {geometry.KERNEL_TRANSFORM, geometry.KERNEL, binning.KERNEL,
+               "K4_raster_classic", shade.KERNEL}
     if st.pipeline == "classic":
         return route, classic, {
             "K5_gather_rows", shade_pack.KERNEL, *front, *rasters}
@@ -4035,7 +4114,8 @@ def main(argv=None) -> int:
                     "prints no kernels or ok line")
     ap.add_argument("--classic-glue", action="store_true",
                     help="run phases 1, 2 and 29 alone (the classic route's "
-                    "glue: K8C, K10, K11); prints no kernels or ok line")
+                    "glue: K8C, K10, K12, K11); prints no kernels or ok "
+                    "line")
     ap.add_argument("--front-glue", action="store_true",
                     help="run phases 1, 2, 27 and 28 alone (the vertex "
                     "transform K8, the expansion and range meta K9); prints "
@@ -4119,7 +4199,8 @@ def main(argv=None) -> int:
         return timing
 
     def classic_glue_phase(errs, head5):
-        with Phase("29 the classic route's glue (K8C, K10, K11) vs plain"):
+        with Phase("29 the classic route's glue (K8C, K10, K12, K11) vs "
+                   "plain"):
             scene5, st5, cam5, g5 = head5
             return classic_glue_checks(
                 dev, card, errs, Renderer(scene5, st5, device=dev), cam5, g5)
@@ -4545,6 +4626,10 @@ def main(argv=None) -> int:
         "K11": ("K11_shade_pack_classic",
                 "ash_renderer_tpu_torch/csrc/shade_pack.cu",
                 "none (ash_renderer_tpu/pipeline.py:698, XLA glue)", counts_g),
+        # no Pallas kernel: the classic route's binning is XLA glue
+        # (ops/binning.py:bin_triangles under _stage_raster's jit)
+        "K12": ("K12_binning", "ash_renderer_tpu_torch/csrc/binning.cu",
+                "none (ash_renderer_tpu/pipeline.py:694, XLA glue)", counts_g),
     }
     kernels = []
     for k, (name, src, rep, n) in meta.items():
