@@ -112,11 +112,12 @@ KERNELS = {
         # clip, attrs, vtx, attrs_full, n_verts, width, height, min_c,
         # max_cx, max_cy, ss, gx, gy, stream
         "ash_geometry_vertices": [_P] * 4 + [_I] * 7 + [_F, _F] + [_P],
-        # vtx, corners (or NULL), clip, attrs, tri_v, tri_mat, scratch
-        # (counters, per-chunk counts, sel, flags), setup rows, valid,
-        # attrs_full, n_verts, n_tris, budget, width, height, min_c,
-        # max_cx, max_cy, ss, gx, gy, stream
-        "ash_geometry_tris": [_P] * 10 + [_I] * 9 + [_F, _F] + [_P],
+        # corners (K5's rows, or NULL: the launch snaps them), clip,
+        # attrs, tri_v, tri_mat, scratch (counters, per-chunk counts, sel,
+        # flags), setup rows, valid, attrs_full, n_verts, n_tris, budget,
+        # width, height, min_c, max_cx, max_cy, ss, gx, gy, cluster (the
+        # design), stream
+        "ash_geometry_tris": [_P] * 9 + [_I] * 9 + [_F, _F, _I] + [_P],
     },
     "front_meta.cu": {
         # comb, order, bounds, rects, wrow, wrec, tile_cnt, row_cnt,

@@ -81,23 +81,22 @@ __device__ __forceinline__ void store_counts(const FlagCounts& n, int c,
 }
 
 // The first `budget` clip candidates (flag bit 1) in ascending row order
-// into sel (geometry._select_budgeted), over the grid's blocks: each chunk
+// into sel (geometry._select_budgeted), over blocks: each chunk
 // of THREADS * ITERS rows ranks its candidates from the counts of the
 // chunks before it (counts[i * 3]) and its warps' ballots, in row order
 // (iteration k, then warp, then lane).  The -1 fill past the candidates is
-// the caller's.
+// the caller's.  The chunks are split over `parts` blocks, this one
+// `part` of them: one cluster's, or (the overload below) the grid's.
 template <int THREADS, int ITERS>
-__device__ __forceinline__ void select_candidates(const int* flags, int n,
-                                                  const int* counts,
-                                                  int* sel, int budget,
-                                                  int* red,
-                                                  int (*wsum)[THREADS / 32]) {
+__device__ __forceinline__ void select_candidates(
+    const int* flags, int n, const int* counts, int* sel, int budget,
+    int* red, int (*wsum)[THREADS / 32], int part, int parts) {
   constexpr int CHUNK = THREADS * ITERS;
   constexpr int W = THREADS / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_chunks = (n + CHUNK - 1) / CHUNK;
   const unsigned lt = (1u << lane) - 1u;
-  for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+  for (int c = part; c < n_chunks; c += parts) {
     if (counts[c * 3] == 0) continue;
     int before = 0;  // candidates in the chunks before this one
     for (int i = tid; i < c; i += THREADS) before += counts[i * 3];
@@ -132,6 +131,16 @@ __device__ __forceinline__ void select_candidates(const int* flags, int n,
     }
     __syncthreads();  // wsum is rewritten for the next chunk
   }
+}
+
+template <int THREADS, int ITERS>
+__device__ __forceinline__ void select_candidates(const int* flags, int n,
+                                                  const int* counts,
+                                                  int* sel, int budget,
+                                                  int* red,
+                                                  int (*wsum)[THREADS / 32]) {
+  select_candidates<THREADS, ITERS>(flags, n, counts, sel, budget, red, wsum,
+                                    blockIdx.x, gridDim.x);
 }
 
 // plane p's signed distance (geometry._plane_dists: near z, far w - z,

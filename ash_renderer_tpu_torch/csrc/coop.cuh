@@ -1,10 +1,12 @@
 // The grid of a cooperative launch, one definition for the cooperative
 // kernels (K6 clip_tail.cu, K9 front_meta.cu, K10 geometry.cu, K12
-// binning.cu), and the block-wide sums and scans K9 and K12 split their
-// rows into chunks with.
+// binning.cu); the launch of thread block clusters and a zero fill of
+// 16-byte stores (K10 at the classic route's sizes); and the block-wide
+// sums and scans K9 and K12 split their rows into chunks with.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace ash {
 
@@ -40,6 +42,88 @@ int coop_grid(K kernel, int threads, int* blocks) {
                                                    : COOP_MAX_BLOCKS_PER_SM);
   if (dev < 64) cached[dev] = *blocks;
   return 0;
+}
+
+// Launch `kernel` as thread block clusters of `blocks` blocks (above 8 the
+// cluster size is non-portable, which the kernel is allowed here) of
+// `threads` threads and `smem` bytes of dynamic shared memory, with its
+// one parameter struct, on `stream`: as many clusters as the card holds
+// at once, at most one a `blocks` SMs, at least one (the kernel's first
+// cluster does the work that needs its barriers, the others only work
+// that needs none; no cluster waits on another).  The attributes and the
+// occupancy query are made once a device per instantiation (each cluster
+// kernel takes its own parameter struct, and its `smem` is the same on
+// every call).  Returns the launch's CUDA error, or
+// cudaErrorLaunchOutOfResources where the device holds no such cluster
+// (cudaOccupancyMaxActiveClusters gives 0): the caller raises, it does not
+// fall back.
+template <class K, class Params>
+int launch_cluster(K kernel, int blocks, int threads, size_t smem,
+                   void* stream, const Params& params) {
+  static int clusters[64];  // per device: 0 not asked, -1 none fits
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const void* fn = (const void*)kernel;
+  int n = dev < 64 ? clusters[dev] : 0;
+  if (n == 0) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (e == cudaSuccess && smem > 0)
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    int active = 0, sms = 0;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&active, fn, &cfg);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    n = active < 1 ? -1 : (active < sms / blocks ? active : sms / blocks);
+    if (n == 0) n = 1;
+    if (dev < 64) clusters[dev] = n;
+  }
+  if (n < 0) return (int)cudaErrorLaunchOutOfResources;
+  cfg.gridDim = dim3(blocks * n);
+  void* args[] = {const_cast<Params*>(&params)};
+  return (int)cudaLaunchKernelExC(&cfg, fn, args);
+}
+
+// a cluster's barrier in two halves: arrive when this thread's reads of
+// the other blocks' shared memory are done (release), wait before the
+// block ends or reads again (acquire); every thread of the block calls
+// both, the warp converged
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// zero the n bytes from p as thread t of nt: the bytes before the first
+// 16-byte boundary and after the last one alone, 16-byte stores between
+__device__ __forceinline__ void zero_fill(void* p, long long n, long long t,
+                                          long long nt) {
+  unsigned char* b = static_cast<unsigned char*>(p);
+  const long long mis = (long long)((uintptr_t)b & 15);
+  const long long head = mis ? (16 - mis < n ? 16 - mis : n) : 0;
+  const long long body = (n - head) >> 4;
+  const long long tail = n - head - 16 * body;
+  if (t < head) b[t] = 0;
+  int4* q = reinterpret_cast<int4*>(b + head);
+  for (long long i = t; i < body; i += nt) q[i] = make_int4(0, 0, 0, 0);
+  if (t < tail) b[head + 16 * body + t] = 0;
 }
 
 // sum of v over a block of THREADS threads; every thread gets it.  `red`

@@ -1,5 +1,6 @@
-// K10: the classic route's triangle setup in two launches with no host
-// read.  The plain torch version is
+// K10: the classic route's triangle setup in one launch with no host read
+// on a plain-packed scene (a vertex launch first on a meshlet-packed one).
+// The plain torch version is
 // ash_renderer_tpu_torch/ops/geometry.py:geometry_device_plain.
 //
 // It replaces no Pallas kernel.  The reference computes this stage as XLA
@@ -14,32 +15,44 @@
 // vertex), the triangles' ids and materials, 73 bytes of setup fields a
 // setup row (the 18 words and the valid byte) over the triangles and the
 // 7 x clip_budget tail rows, and 9 x clip_budget attribute rows, ~4 MB at
-// the default budget of 4096: about a microsecond at 3.35 TB/s, which the
-// launches exceed.  So the design is two launches (the 32-byte snapped
-// vertex rows between them are scratch):
-//
-// ash_geometry_vertices, one thread a vertex: the snap, 1/w and the
-// 10-bit outcode (geometry._vertex_post) as an (8,) int32 row, and the
-// vertex's attribute row copied into attrs_full.  On a meshlet-packed
-// scene K5 then gathers the three corner rows of each triangle from these
-// rows (the caller's launch).
-//
-// ash_geometry_tris, one cooperative launch, its grid sized from the
-// occupancy, in three passes split by grid syncs (as K6's):
-// 1. setup: one thread a triangle classifies it from its corners'
-//    outcodes (fast, clip candidate or culled), writes its setup row
-//    (_finish_tri of a fast triangle, else zeros) and its flags, and each
-//    chunk of CHUNK rows counts its flags by warp ballots;
-//    -- grid sync --
+// the default budget of 4096, nearly all of it the zeros of dead budget
+// slots: about a microsecond at 3.35 TB/s, which the launch exceeds.  So
+// the design is one launch (tri_kernel) in three passes split by two
+// barriers:
+// 1. setup: one thread a triangle snaps its three corners itself from
+//    their clip positions (geometry._vertex_post: vertex_post below), or
+//    on a meshlet-packed scene reads them from K5's gathered rows,
+//    classifies the triangle (fast, clip candidate or culled), writes its
+//    setup row (_finish_tri of a fast triangle, else zeros) and its flags,
+//    and each chunk of CHUNK rows counts its flags by warp ballots; on a
+//    plain-packed scene the launch also copies the V attribute rows into
+//    attrs_full;
+//    -- barrier --
 // 2. select: the first clip_budget candidates in ascending row order
-//    (clip.cuh), -1 fill; block 0 writes the counters;
-//    -- grid sync --
-// 3. clip: 16 lanes a budget slot clip the selected triangle against the
-//    6 guard planes (clip.cuh), 7 lanes fan, snap and cull its triangles
-//    into setup rows T + 7 * slot + j, and the 16 write its 9 attribute
-//    rows V + 9 * slot + i.  A slot past the candidates writes zeros: at
-//    the default budget most slots are dead, and each costs its rows'
-//    bytes.
+//    (clip.cuh), -1 fill; every block knows the candidates in all, and the
+//    dead budget slots' setup rows, valid bytes and attribute rows are
+//    zeroed as 16-byte stores (those past the triangles, dead whatever the
+//    candidates, already in pass 1); block 0 writes the counters;
+//    -- barrier --
+// 3. clip: 16 lanes a live budget slot (one with a candidate) clip the
+//    selected triangle against the 6 guard planes (clip.cuh), 7 lanes
+//    fan, snap and cull its triangles into setup rows T + 7 * slot + j,
+//    and the 16 write its 9 attribute rows V + 9 * slot + i.
+// The barriers are a cluster's at the classic route's sizes
+// (tri_kernel<true>): one thread block cluster of CL_BLOCKS blocks runs
+// the passes, its barrier the hardware's within one GPC, where a
+// card-wide cooperative grid pays two grid syncs of ~2 us over blocks that
+// mostly have no triangle; the launch holds as many more clusters as the
+// card runs at once beside it, and each of those classifies the triangles
+// again, counts the candidates and zeroes its share of the dead slots
+// (one GPC writes the ~4 MB of zeros at a fraction of the card's rate),
+// waiting on no other cluster.  Past the crossover the wrapper measured
+// (ops/geometry.py k10_design), the same passes run as one cooperative
+// launch, its grid sized from the occupancy (tri_kernel<false>).  On a meshlet-packed scene the vertex
+// launch (vertex_kernel: the snap, 1/w and the 10-bit outcode as an (8,)
+// int32 row, and the vertex's attribute row copied into attrs_full) runs
+// first, then K5 gathers the three corner rows of each triangle from
+// those rows (the caller's launch).
 //
 // The setup rows are one (S, SETUP_COLS) int32 table in the order of
 // rtypes.SETUP_ROW_FIELDS (x0, y0, x1, y1, x2, y2, inv_area2, iw0-2,
@@ -51,10 +64,12 @@
 // Exactness, as the plain chain computes it:
 // * the vertex snap is K1's corner() (setup.cu) and _vertex_post's:
 //   recip_spec(w) (non-finite -> 0), snap_coord, quantize_depth, the
-//   plane distances with fmul / fadd / fsub, no FMA;
-// * a fast row's corners are (vtx[clamp(tri_v)], or K5's gathered rows),
-//   the shoelace and rewind (a, c, b) in wrapping int32, inv_area2 =
-//   recip_spec(f32(area2)); every field of an invalid row is 0 (+0.0);
+//   plane distances with fmul / fadd / fsub, no FMA; a corner snapped in
+//   the tri pass is the same function of the same clip position;
+// * a fast row's corners are (the snap of clip[clamp(tri_v)], or K5's
+//   gathered rows), the shoelace and rewind (a, c, b) in wrapping int32,
+//   inv_area2 = recip_spec(f32(area2)); every field of an invalid row is
+//   0 (+0.0);
 // * the clip path is clip.cuh's, which K6 runs too; its attribute rows
 //   are the placed polygon's first 9 slots (0.0 + v, unused slots +0.0),
 //   zeros where the slot has no candidate.
@@ -79,7 +94,8 @@ using clip::N_TBL;
 using clip::POLY;
 constexpr int VTX_THREADS = 256;
 constexpr int THREADS = 256;
-constexpr int ITERS = 16;
+constexpr int CL_BLOCKS = 16;  // blocks a cluster
+constexpr int ITERS = 4;
 constexpr int CHUNK = THREADS * ITERS;  // ops/geometry.K10_CHUNK
 constexpr int N_WARPS = THREADS / 32;
 constexpr int SLOTS = THREADS / N_TBL;  // budget slots a block at a time
@@ -101,23 +117,25 @@ struct VtxParams {
   float gx, gy;
 };
 
-// geometry._vertex_post of one vertex, and its attribute row copied
-__global__ void __launch_bounds__(VTX_THREADS)
-vertex_kernel(const VtxParams P) {
-  const int v = blockIdx.x * VTX_THREADS + threadIdx.x;
-  if (v >= P.n_verts) return;
-  const float4 c = P.cpos[v];
+// geometry._vertex_post of one vertex: the snapped x, y, zq and iw's bits,
+// and the outcode (bits 0-5: the guard planes, _plane_dists' order; 6-9:
+// the screen side planes)
+struct VtxPost {
+  int x, y, zq, iw, oc;
+};
+
+__device__ __forceinline__ VtxPost vertex_post(const float4 c,
+                                               const clip::SnapCfg& S,
+                                               float gx, float gy) {
   const float cv[4] = {c.x, c.y, c.z, c.w};
-  const clip::Snap s = clip::snap(cv, P.snap);
-  // bits 0-5: the guard planes (_plane_dists' order); 6-9: the screen side
-  // planes
+  const clip::Snap s = clip::snap(cv, S);
   const float ds[10] = {
       c.z,
       fsub(c.w, c.z),
-      fadd(fmul(P.gx, c.w), c.x),
-      fsub(fmul(P.gx, c.w), c.x),
-      fadd(fmul(P.gy, c.w), c.y),
-      fsub(fmul(P.gy, c.w), c.y),
+      fadd(fmul(gx, c.w), c.x),
+      fsub(fmul(gx, c.w), c.x),
+      fadd(fmul(gy, c.w), c.y),
+      fsub(fmul(gy, c.w), c.y),
       fadd(c.w, c.x),
       fsub(c.w, c.x),
       fadd(c.w, c.y),
@@ -126,16 +144,25 @@ vertex_kernel(const VtxParams P) {
   int oc = 0;
 #pragma unroll
   for (int p = 0; p < 10; ++p) oc |= (ds[p] < 0.0f ? 1 : 0) << p;
-  P.vtx[2 * (size_t)v] = make_int4(s.x, s.y, s.zq, bits(s.iw));
-  P.vtx[2 * (size_t)v + 1] = make_int4(oc, 0, 0, 0);
+  return VtxPost{s.x, s.y, s.zq, bits(s.iw), oc};
+}
+
+// a vertex's row, and its attribute row copied
+__global__ void __launch_bounds__(VTX_THREADS)
+vertex_kernel(const VtxParams P) {
+  const int v = blockIdx.x * VTX_THREADS + threadIdx.x;
+  if (v >= P.n_verts) return;
+  const VtxPost q = vertex_post(P.cpos[v], P.snap, P.gx, P.gy);
+  P.vtx[2 * (size_t)v] = make_int4(q.x, q.y, q.zq, q.iw);
+  P.vtx[2 * (size_t)v + 1] = make_int4(q.oc, 0, 0, 0);
 #pragma unroll
-  for (int q = 0; q < ATTR / 4; ++q)
-    P.attrs_full[(size_t)v * (ATTR / 4) + q] = P.attrs[(size_t)v * (ATTR / 4) + q];
+  for (int q4 = 0; q4 < ATTR / 4; ++q4)
+    P.attrs_full[(size_t)v * (ATTR / 4) + q4] =
+        P.attrs[(size_t)v * (ATTR / 4) + q4];
 }
 
 struct TriParams {
-  const int* vtx;      // (V, 8)
-  const int* corners;  // (T, 24) K5's gathered corner rows, or null
+  const int* corners;  // (T, 24) K5's gathered corner rows, or null: snap
   const float* cpos;   // (V, 4) clip positions
   const float* attrs;  // (V, 12)
   const int* tri_v;    // (T, 3)
@@ -166,9 +193,11 @@ __device__ __forceinline__ void write_row(int* row, bool valid, int ax,
   r4[4] = make_int4(zi(czq), zi(bzq), 0, 0);
 }
 
-// pass 1 for triangle t: classify, write its setup row and valid flag;
-// returns its flags (valid | clip candidate << 1 | fast << 2)
-__device__ __forceinline__ int setup_tri(const TriParams& P, int t) {
+// pass 1 for triangle t: classify, write its setup row and valid flag
+// (with `write`); returns its flags (valid | clip candidate << 1 | fast
+// << 2)
+__device__ __forceinline__ int setup_tri(const TriParams& P, int t,
+                                         bool write) {
   const int* tv = P.tri_v + (size_t)t * 3;
   int vid[3];
   int4 cr[3];  // x, y, zq, iw bits
@@ -176,11 +205,17 @@ __device__ __forceinline__ int setup_tri(const TriParams& P, int t) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     vid[k] = min(max(tv[k], 0), P.n_verts - 1);
-    const int* row = P.corners != nullptr
-                         ? P.corners + (size_t)t * 3 * VTX_COLS + k * VTX_COLS
-                         : P.vtx + (size_t)vid[k] * VTX_COLS;
-    cr[k] = *reinterpret_cast<const int4*>(row);
-    oc[k] = row[4];
+    if (P.corners != nullptr) {
+      const int* row = P.corners + (size_t)t * 3 * VTX_COLS + k * VTX_COLS;
+      cr[k] = *reinterpret_cast<const int4*>(row);
+      oc[k] = row[4];
+    } else {
+      const VtxPost q = vertex_post(
+          reinterpret_cast<const float4*>(P.cpos)[vid[k]], P.snap, P.gx,
+          P.gy);
+      cr[k] = make_int4(q.x, q.y, q.zq, q.iw);
+      oc[k] = q.oc;
+    }
   }
   const bool vid_ok = tv[0] >= 0;
   const int oc_and = oc[0] & oc[1] & oc[2];
@@ -194,81 +229,164 @@ __device__ __forceinline__ int setup_tri(const TriParams& P, int t) {
                       wmul(wsub(B.y, A.y), wsub(C.x, A.x)));
   const bool valid = fast && sl < 0;
   const int area2 = valid ? wsub(0, sl) : 1;
-  write_row(P.table + (size_t)t * SETUP_COLS, valid, A.x, A.y, B.x, B.y, C.x,
-            C.y, area2, recip_spec(i2f(area2)), A.z, B.z, C.z, A.w, B.w, C.w,
-            vid[0], vid[1], vid[2], P.tri_mat[t]);
-  P.valid[t] = valid ? 1 : 0;
+  if (write) {
+    write_row(P.table + (size_t)t * SETUP_COLS, valid, A.x, A.y, B.x, B.y,
+              C.x, C.y, area2, recip_spec(i2f(area2)), A.z, B.z, C.z, A.w,
+              B.w, C.w, vid[0], vid[1], vid[2], P.tri_mat[t]);
+    P.valid[t] = valid ? 1 : 0;
+  }
   return (valid ? 1 : 0) | (needs_clip ? 2 : 0) | (fast ? 4 : 0);
 }
 
+// the setup rows, valid bytes and attribute rows of budget slots [from,
+// to) zeroed, as thread t of nt: 16-byte stores
+__device__ __forceinline__ void zero_slots(const TriParams& P, int from,
+                                           int to, long long t,
+                                           long long nt) {
+  if (to <= from) return;
+  const size_t n = P.n_tris, v = P.n_verts;
+  zero_fill(P.table + (n + (size_t)FAN * from) * SETUP_COLS,
+            4LL * FAN * SETUP_COLS * (to - from), t, nt);
+  zero_fill(P.valid + n + (size_t)FAN * from, (long long)FAN * (to - from), t,
+            nt);
+  zero_fill(P.attrs_full + (v + (size_t)MAX_VERTS * from) * ATTR,
+            4LL * MAX_VERTS * ATTR * (to - from), t, nt);
+}
+
+// every block of the launch waits here: the cluster's barrier, or the
+// cooperative grid's
+template <bool CLUSTER>
+__device__ __forceinline__ void barrier() {
+  if constexpr (CLUSTER) cg::this_cluster().sync();
+  else cg::this_grid().sync();
+}
+
+template <bool CLUSTER>
 __global__ void __launch_bounds__(THREADS) tri_kernel(const TriParams P) {
   __shared__ int red[N_WARPS];
   __shared__ int wsum[ITERS][N_WARPS];
   __shared__ float poly[SLOTS][POLY][N_TBL];
   __shared__ int poly_n[SLOTS];
-  cg::grid_group grid = cg::this_grid();
+  __shared__ int s_clip;  // a cluster block's candidates, read by its ranks
   const int tid = threadIdx.x;
   const int n = P.n_tris, budget = P.budget;
   const int n_chunks = (n + CHUNK - 1) / CHUNK;
+  const long long gt = (long long)blockIdx.x * THREADS + tid;
+  const long long nt = (long long)gridDim.x * THREADS;
+  // the blocks that set the triangles up, select and clip: the grid's, or
+  // the first cluster's; in a cluster launch every cluster counts the
+  // candidates, and the others zero the dead slots' rows (the first too
+  // when it is alone)
+  int part = blockIdx.x, parts = gridDim.x, cid = 0, n_cl = 1;
+  if constexpr (CLUSTER) {
+    part = (int)cg::this_cluster().block_rank();
+    parts = CL_BLOCKS;
+    cid = blockIdx.x / CL_BLOCKS;
+    n_cl = gridDim.x / CL_BLOCKS;
+  }
+  const bool main = cid == 0;
+  // the threads that zero dead slots: the other clusters', which zero
+  // those past the triangles (dead whatever the candidates) at once; or,
+  // alone, all of them after the count
+  const long long skip = n_cl == 1 ? 0 : (long long)CL_BLOCKS * THREADS;
+  const bool zeroer = !main || n_cl == 1;
+  const int sure = n_cl == 1 ? budget : min(n, budget);
   int* counters = P.scratch;
   int* counts = P.scratch + N_COUNTERS;
   int* sel = counts + N_COUNTS * n_chunks;
   int* flags = sel + budget;
 
-  // 1. each triangle's setup row and flags; each chunk's counts
-  for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+  // 1. each triangle's setup row and flags; each chunk's counts; on a
+  // plain-packed scene the vertices' attribute rows; the slots past the
+  // triangles zeroed
+  if (zeroer) zero_slots(P, sure, budget, gt - skip, nt - skip);
+  if (P.corners == nullptr) {
+    const float4* src = reinterpret_cast<const float4*>(P.attrs);
+    float4* dst = reinterpret_cast<float4*>(P.attrs_full);
+    for (long long i = gt; i < (long long)P.n_verts * (ATTR / 4); i += nt)
+      dst[i] = src[i];
+  }
+  int n_clip_w = 0;  // a warp's candidates (each lane holds its warp's)
+  for (int c = part; c < n_chunks; c += parts) {
     clip::FlagCounts fc{0, 0, 0};
 #pragma unroll 1
     for (int k = 0; k < ITERS; ++k) {
       const int t = c * CHUNK + k * THREADS + tid;
       int f = 0;
       if (t < n) {
-        f = setup_tri(P, t);
-        flags[t] = f;
+        f = setup_tri(P, t, main);
+        if (main) flags[t] = f;
       }
       clip::add_flags(fc, f);
     }
-    clip::store_counts<N_WARPS>(fc, c, counts, red);
+    if (main) clip::store_counts<N_WARPS>(fc, c, counts, red);
+    n_clip_w += fc.clip;
   }
-  grid.sync();
-
-  // 2. the first `budget` candidates into sel, -1 fill; block 0 writes the
-  // counters (the clip pass adds the tail's valid rows)
-  if (blockIdx.x == 0) {
-    int n_clip = 0, valid = 0, fast = 0;
-    for (int i = tid; i < n_chunks; i += THREADS) {
-      n_clip += counts[i * N_COUNTS + 0];
-      valid += counts[i * N_COUNTS + 1];
-      fast += counts[i * N_COUNTS + 2];
-    }
-    n_clip = clip::block_sum<N_WARPS>(n_clip, red);
-    valid = clip::block_sum<N_WARPS>(valid, red);
-    fast = clip::block_sum<N_WARPS>(fast, red);
-    const int kept = min(n_clip, budget);
-    for (int i = kept + tid; i < budget; i += THREADS) sel[i] = -1;
-    if (tid == 0) {
-      counters[C_CLIPPED] = n_clip;
-      counters[C_OVERFLOW] = n_clip - kept;
-      counters[C_VALID] = valid;
-      counters[C_FAST] = fast;
-    }
+  if (!main) {
+    const int b =
+        clip::block_sum<N_WARPS>((tid & 31) == 0 ? n_clip_w : 0, red);
+    if (tid == 0) s_clip = b;
   }
-  clip::select_candidates<THREADS, ITERS>(flags, n, counts, sel, budget, red,
-                                          wsum);
-  grid.sync();
+  barrier<CLUSTER>();
 
-  // 3. SLOTS budget slots at a time, N_TBL lanes a slot: the clip, the 7
-  // fan rows and the 9 attribute rows of each
-  const int n_groups = (budget + SLOTS - 1) / SLOTS;
-  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+  // 2. the candidates in all (the chunks' counts; another cluster its
+  // ranks' counts, read remotely), so the slots past them are dead, and
+  // their rows are zeroed; block 0 writes the counters (the clip pass adds
+  // the tail's valid rows) and the -1 fill; the first `budget` candidates
+  // into sel
+  int n_clip = 0;
+  if (main) {
+    for (int i = tid; i < n_chunks; i += THREADS)
+      n_clip += counts[i * N_COUNTS];
+  } else if constexpr (CLUSTER) {
+    n_clip = tid < CL_BLOCKS
+                 ? *cg::this_cluster().map_shared_rank(&s_clip, tid)
+                 : 0;
+  }
+  n_clip = clip::block_sum<N_WARPS>(n_clip, red);
+  const int n_sel = min(n_clip, budget);
+  if (!main) {  // the others' counts are read: they end at the barrier
+    cluster_arrive();
+    zero_slots(P, n_sel, sure, gt - skip, nt - skip);
+    cluster_wait();
+    return;
+  }
+  if (zeroer) zero_slots(P, n_sel, sure, gt, nt);
+  {
+    if (blockIdx.x == 0) {
+      int valid = 0, fast = 0;
+      for (int i = tid; i < n_chunks; i += THREADS) {
+        valid += counts[i * N_COUNTS + 1];
+        fast += counts[i * N_COUNTS + 2];
+      }
+      valid = clip::block_sum<N_WARPS>(valid, red);
+      fast = clip::block_sum<N_WARPS>(fast, red);
+      for (int i = n_sel + tid; i < budget; i += THREADS) sel[i] = -1;
+      if (tid == 0) {
+        counters[C_CLIPPED] = n_clip;
+        counters[C_OVERFLOW] = n_clip - n_sel;
+        counters[C_VALID] = valid;
+        counters[C_FAST] = fast;
+      }
+    }
+    clip::select_candidates<THREADS, ITERS>(flags, n, counts, sel, budget,
+                                            red, wsum, part, parts);
+  }
+  if (n_sel == 0) return;  // no slot to clip: every block knows it
+  barrier<CLUSTER>();
+
+  // 3. SLOTS live budget slots at a time, N_TBL lanes a slot: the clip, the
+  // 7 fan rows and the 9 attribute rows of each
+  const int n_groups = (n_sel + SLOTS - 1) / SLOTS;
+  for (int grp = part; grp < n_groups; grp += parts) {
     const int g = tid / N_TBL;   // slot in the block
     const int ch = tid % N_TBL;  // this lane's channel: clip 0-3, attrs 4-15
     const unsigned gmask = 0xFFFFu << (tid & 16);
     const int slot = grp * SLOTS + g;
-    const int si = slot < budget ? sel[slot] : -1;
-    const int tri = min(max(si, 0), n - 1);
+    const bool live = slot < n_sel;
+    const int tri = live ? min(max(sel[slot], 0), n - 1) : 0;
 
-    if (si >= 0) {
+    if (live) {
       float buf[POLY];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
@@ -284,15 +402,13 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(const TriParams P) {
 #pragma unroll
       for (int s = 0; s < POLY; ++s) poly[g][s][ch] = buf[s];
       if (ch == 0) poly_n[g] = count;
-    } else if (ch == 0) {
-      poly_n[g] = 0;
     }
     __syncthreads();
 
     // the fan: lane j < FAN makes triangle (0, j + 1, j + 2) into setup
     // row T + 7 * slot + j, its vertex ids the slot's attribute rows
     bool valid = false;
-    if (ch < FAN && slot < budget) {
+    if (ch < FAN && live) {
       const int j = ch;
       const clip::FanTri F = clip::fan_tri(poly[g], poly_n[g], j, P.snap);
       valid = F.valid;
@@ -301,18 +417,17 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(const TriParams P) {
       write_row(P.table + (size_t)row * SETUP_COLS, valid, F.a.x, F.a.y,
                 F.b.x, F.b.y, F.c.x, F.c.y, F.area2, F.inv_area2, F.a.zq,
                 F.b.zq, F.c.zq, bits(F.a.iw), bits(F.b.iw), bits(F.c.iw),
-                vbase, vbase + j + 1, vbase + j + 2,
-                si >= 0 ? P.tri_mat[tri] : 0);
+                vbase, vbase + j + 1, vbase + j + 2, P.tri_mat[tri]);
       P.valid[row] = valid ? 1 : 0;
     }
     const unsigned vb = __ballot_sync(clip::FULL, valid) & gmask;
     if (ch == 0 && vb) atomicAdd(&counters[C_VALID], __popc(vb));
 
     // the slot's 9 attribute rows: the placed polygon's first 9 slots
-    if (slot < budget) {
+    if (live) {
       float* out = P.attrs_full + ((size_t)P.n_verts + (size_t)MAX_VERTS * slot) * ATTR;
       for (int w = ch; w < MAX_VERTS * ATTR; w += N_TBL)
-        out[w] = si >= 0 ? poly[g][w / ATTR][4 + w % ATTR] : 0.0f;
+        out[w] = poly[g][w / ATTR][4 + w % ATTR];
     }
     __syncthreads();  // poly and poly_n are rewritten next group
   }
@@ -340,16 +455,15 @@ extern "C" int ash_geometry_vertices(const float* cpos, const float* attrs,
   return (int)cudaGetLastError();
 }
 
-extern "C" int ash_geometry_tris(const int* vtx, const int* corners,
-                                 const float* cpos, const float* attrs,
-                                 const int* tri_v, const int* tri_mat,
-                                 int* scratch, int* table, void* valid,
-                                 float* attrs_full, int n_verts, int n_tris,
-                                 int budget, int width, int height, int min_c,
-                                 int max_cx, int max_cy, int ss, float gx,
-                                 float gy, void* stream) {
-  TriParams P{vtx,
-              corners,
+extern "C" int ash_geometry_tris(const int* corners, const float* cpos,
+                                 const float* attrs, const int* tri_v,
+                                 const int* tri_mat, int* scratch, int* table,
+                                 void* valid, float* attrs_full, int n_verts,
+                                 int n_tris, int budget, int width, int height,
+                                 int min_c, int max_cx, int max_cy, int ss,
+                                 float gx, float gy, int cluster,
+                                 void* stream) {
+  TriParams P{corners,
               cpos,
               attrs,
               tri_v,
@@ -364,11 +478,14 @@ extern "C" int ash_geometry_tris(const int* vtx, const int* corners,
               clip::SnapCfg{width, height, min_c, max_cx, max_cy, ss},
               gx,
               gy};
+  if (cluster)
+    return ash::launch_cluster(tri_kernel<true>, CL_BLOCKS, THREADS, 0, stream,
+                               P);
   int blocks = 0;
-  const int rc = ash::coop_grid(tri_kernel, THREADS, &blocks);
+  const int rc = ash::coop_grid(tri_kernel<false>, THREADS, &blocks);
   if (rc != 0) return rc;
   void* args[] = {&P};
-  return (int)cudaLaunchCooperativeKernel((const void*)tri_kernel,
+  return (int)cudaLaunchCooperativeKernel((const void*)tri_kernel<false>,
                                           dim3(blocks), dim3(THREADS), args,
                                           0, (cudaStream_t)stream);
 }

@@ -15,9 +15,12 @@ computes both stages as XLA glue under one jit, ``_stage_geometry``,
   transform in row layout, one launch where eager torch pays ~64; its
   plain version is ``transform_vertices_plain``.
 * K10 (``geometry_device``, ``csrc/geometry.cu``): the classic setup in
-  two launches (a vertex pass, then one cooperative launch that sets up
-  the triangles, selects the clip candidates and clips them) with no host
-  read, where eager torch pays hundreds of launches, a host read of the
+  one launch that snaps each triangle's corners, sets the triangles up,
+  selects the clip candidates and clips them (a vertex launch first, and
+  K5's corner gather, on a meshlet-packed scene), its passes split by the
+  barriers of one thread block cluster at the classic route's sizes or of
+  one cooperative grid past them (``k10_design``), with no host read,
+  where eager torch pays hundreds of launches, a host read of the
   candidate count on every frame and the select's ``nonzero`` on every
   frame that clips; its plain version is ``geometry_device_plain``.  It
   writes the setup as one (S, ``SETUP_COLS``) table (``geometry_rows``,
@@ -53,7 +56,10 @@ KERNEL_TRANSFORM = "K8C_vertex_transform_rows"
 KERNEL = "K10_geometry"
 # K10's counters, in the order of its counter buffer
 COUNTERS = ("n_clipped", "clip_overflow", "n_valid", "n_fast")
-K10_CHUNK = 4096  # triangles a chunk of K10's count and select passes
+K10_CHUNK = 1024  # triangles a chunk of K10's count and select passes
+# the crossover: K10's passes meet at one thread block cluster's barriers
+# for at most this many triangles, at a cooperative grid's past it
+K10_CLUSTER_MAX_TRIS = 16384
 
 _SETUP_FIELDS = tuple(f.name for f in dataclasses.fields(TriangleSetup))
 _TAIL_FIELDS = (
@@ -424,13 +430,32 @@ def setup_from_rows(rows, valid):
     return TriangleSetup(valid=valid, **fields)
 
 
+def k10_design(n_tris: int) -> str:
+    """K10's design for ``n_tris`` triangles: "cluster" (its passes split
+    by one thread block cluster's barriers) up to
+    ``K10_CLUSTER_MAX_TRIS``, "grid" (one cooperative launch over the
+    card) past it."""
+    return "cluster" if n_tris <= K10_CLUSTER_MAX_TRIS else "grid"
+
+
+def scratch_words(n_verts: int, n_tris: int, clip_budget: int,
+                  meshlets: bool) -> int:
+    """int32 words of device scratch ``geometry_rows`` allocates beside
+    the setup table: the snapped vertex rows K5 gathers from (a
+    meshlet-packed scene only), the counters, the per-chunk counts, the
+    selected candidates and the row flags."""
+    return ((n_verts * VTX_COLS if meshlets else 0) + len(COUNTERS)
+            + 3 * -(-n_tris // K10_CHUNK) + clip_budget + n_tris)
+
+
 def geometry_rows(clip, attrs, tri_v, tri_mat, cfg, clip_budget: int,
                   local_tri=None):
     """``geometry_device`` with the setup as one table: (rows (S,
     SETUP_COLS) int32, ``setup_table``'s layout, valid (S,) bool,
     combined attributes, stats).  CPU tensors take the plain version and
-    pack its fields; CUDA tensors launch kernel K10 (two launches, no host
-    read), which writes the table itself."""
+    pack its fields; CUDA tensors launch kernel K10 (one launch on a
+    plain-packed scene, a vertex launch and K5's gather first on a
+    meshlet-packed one; no host read), which writes the table itself."""
     dev = clip.device
     _check_geometry_args(clip, attrs, tri_v, tri_mat, local_tri)
     if dev.type == "cpu":
@@ -450,28 +475,29 @@ def geometry_rows(clip, attrs, tri_v, tri_mat, cfg, clip_budget: int,
     gx, gy = (float(g) for g in guard_factors(cfg))
     attrs_full = torch.empty((v + MAX_CLIP_VERTS * b, ATTR_COLS),
                              dtype=torch.float32, device=dev)
-    # one allocation: the snapped vertex rows, the setup rows, then the
-    # counters, the per-chunk counts, sel and the row flags
-    n_chunks = -(-t // K10_CHUNK)
-    n_scratch = len(COUNTERS) + 3 * n_chunks + b + t
-    words = torch.empty(v * VTX_COLS + s * SETUP_COLS + n_scratch,
-                        dtype=torch.int32, device=dev)
-    vtx = words[: v * VTX_COLS].view(v, VTX_COLS)
-    rows = words[v * VTX_COLS : v * VTX_COLS + s * SETUP_COLS].view(
-        s, SETUP_COLS)
-    scratch = words[v * VTX_COLS + s * SETUP_COLS :]
+    # one allocation: the snapped vertex rows (meshlet-packed only), the
+    # setup rows (16-byte aligned after them), then the counters, the
+    # per-chunk counts, sel and the row flags
+    n_vtx = v * VTX_COLS if local_tri is not None else 0
+    words = torch.empty(s * SETUP_COLS + scratch_words(
+        v, t, b, local_tri is not None), dtype=torch.int32, device=dev)
+    rows = words[n_vtx : n_vtx + s * SETUP_COLS].view(s, SETUP_COLS)
+    scratch = words[n_vtx + s * SETUP_COLS :]
     valid = torch.empty(s, dtype=torch.bool, device=dev)
-    _build.launch(KERNEL, "ash_geometry_vertices", dev, clip.data_ptr(),
-                  attrs.data_ptr(), vtx.data_ptr(), attrs_full.data_ptr(), v,
-                  *snap, gx, gy)
-    corners = (None if local_tri is None
-               else meshlet_gather.gather_tri_rows(vtx, local_tri))
+    corners = None
+    if local_tri is not None:
+        vtx = words[:n_vtx].view(v, VTX_COLS)
+        _build.launch(KERNEL, "ash_geometry_vertices", dev, clip.data_ptr(),
+                      attrs.data_ptr(), vtx.data_ptr(),
+                      attrs_full.data_ptr(), v, *snap, gx, gy)
+        corners = meshlet_gather.gather_tri_rows(vtx, local_tri)
     _build.launch(
-        KERNEL, "ash_geometry_tris", dev, vtx.data_ptr(),
+        KERNEL, "ash_geometry_tris", dev,
         None if corners is None else corners.data_ptr(), clip.data_ptr(),
         attrs.data_ptr(), tri_v.data_ptr(), tri_mat.data_ptr(),
         scratch.data_ptr(), rows.data_ptr(), valid.data_ptr(),
-        attrs_full.data_ptr(), v, t, b, *snap, gx, gy)
+        attrs_full.data_ptr(), v, t, b, *snap, gx, gy,
+        int(k10_design(t) == "cluster"))
     stats = dict(zip(COUNTERS, scratch[: len(COUNTERS)].unbind()))
     return rows, valid, attrs_full, {**stats, "n_setup": s}
 

@@ -14,9 +14,10 @@ lines and seconds; any failure raises and the exit code is non-zero):
    ``raster_classic_kernel``, K2's
    ``run_bounds_kernel``, K5's ``gather_tile_kernel``, K7's
    ``shade_pack_kernel``, K11's ``shade_classic_kernel``, K8's and K8C's
-   ``transform_kernel``, K10's ``vertex_kernel``, K9's
-   ``front_meta_kernel`` or K12's ``bin_kernel`` a stack frame or
-   spills), and hold
+   ``transform_kernel``, K10's ``vertex_kernel`` or ``tri_kernel`` (its
+   cluster and grid designs), K9's ``front_meta_kernel`` or K12's
+   ``bin_kernel`` a stack frame or spills; K10's parent design under
+   ``experiments/`` is built beside them for phase 29), and hold
    ``native.build_meshlets`` equal to the Python meshlets;
 3. each kernel against its plain torch version on the card, on config4 at
    subdiv 5 (20,480 triangles, 1080p), at the static camera and at a
@@ -280,17 +281,26 @@ lines and seconds; any failure raises and the exit code is non-zero):
    frame of K4's visibility buffer on K12's records), on the gate scene
    at 800x600 on three orbit frames (the first timed with CUDA events
    beside the plain chains, with the bounds, and binned again at
-   ``max_pairs`` 128, which cuts its pairs), the reference scene at
+   ``max_pairs`` 128 and 100, which cut its pairs, the second inside a
+   triangle's rectangle), the reference scene at
    320x240, two clipping scenes under "classic" (one within its budget,
    one over it), the ``ssaa_srgb`` and ``multi_material`` golden scenes
    under "classic", the second of two row slabs of the reference scene,
    and config4 subdiv 5 meshlet-packed with its local corner ids (K10's
    corner rows through K5); every frame EXACT against the port's oracle
-   or its golden; one gate frame, every plain version raising, launches
-   K8C, K10, K12, K4 and K11 and no fused kernel (``route_kernels``), its
-   device kernels a frame counted by ``torch.profiler`` (fewer than the
-   186 of the frame with plain binning), and one whole classic frame runs
-   under ``torch.cuda.set_sync_debug_mode("error")``.
+   or its golden.  K10 runs in both its designs (one thread block
+   cluster and one cooperative grid, ``geometry.k10_design`` forced) and
+   in its parent design (``experiments/k10_two_launch.cu``) beside them;
+   K10 and K12 also on zero triangles (a clip budget of 0 and of 4096:
+   S = 0 and S = 28,672 dead rows), a gate slab from tile row 19 and the
+   plain-packed config4 frames at subdiv 4 and 5, either side of K10's
+   crossover; the timed frames print each design's ms beside the
+   parent's, the plain version's and the bound.  One gate frame, every
+   plain version raising, launches K8C, K10 (once: its one launch), K12,
+   K4 and K11 and no fused kernel (``route_kernels``), K10 takes its
+   cluster design there, its device kernels a frame are counted by
+   ``torch.profiler`` (at most 6), and one whole classic frame runs under
+   ``torch.cuda.set_sync_debug_mode("error")``.
 
 The line before the last is a JSON object with one entry per kernel (its
 time, its plain version's, its bound and, where one PyTorch call computes
@@ -325,6 +335,9 @@ K4_WORDS_PER_REC = 16  # 14 int32 record words, inv_area2 and the box
 K3F_OPS_PER_PX = 160  # phase F: 3 rsqrt_spec chains, powi, mip and tap math
 # K3's 7 streamed ranges, in rmeta order
 RANGE_NAMES = ("own", "above", "left", "diag", "wide", "pairs", "fine")
+
+
+CARD = "card not read"  # the nvidia-smi name and power limit (phase 1)
 
 
 def say(msg: str) -> None:
@@ -369,14 +382,16 @@ NO_FRAME_KERNELS = (("raster.cu", "raster_kernel", 4),
                     ("shade_pack.cu", "shade_classic_kernel", 1),
                     ("transform.cu", "transform_kernel", 2),
                     ("geometry.cu", "vertex_kernel", 1),
+                    ("geometry.cu", "tri_kernel", 2),
                     ("front_meta.cu", "front_meta_kernel", 1),
                     ("binning.cu", "bin_kernel", 1))
 
 
 def check_frames(logs: dict) -> None:
     """ptxas's report: every kernel of ``NO_FRAME_KERNELS`` (K3 and K3F at
-    8 and 4 rows, K4, K2, K5, K7, K11, K8 and K8C, K10's vertex pass, K9,
-    K12) must have no stack frame and no spills."""
+    8 and 4 rows, K4, K2, K5, K7, K11, K8 and K8C, K10's vertex pass and
+    both designs of its triangle pass, K9, K12) must have
+    no stack frame and no spills."""
     import re
 
     for src, kernel, want in NO_FRAME_KERNELS:
@@ -2918,6 +2933,128 @@ K11_OPS_PER_SAMPLE = 170
 GLUE_REPS = (10, 3)  # CUDA-event repetitions (kernel, plain)
 
 
+# the parent design kept under experiments/ (K10's: a vertex launch, then
+# one cooperative grid), built in phase 2 beside csrc and timed beside the
+# kernel in phase 29, through the calls its wrapper made
+PARENT_SOURCES = {"K10": ("geometry.cu", "experiments/k10_two_launch.cu")}
+PARENT_LIBS: dict = {}
+
+
+def _parent_argtypes() -> dict:
+    import ctypes
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return {"ash_geometry_vertices": [p] * 4 + [i] * 7 + [f, f] + [p],
+            "ash_geometry_tris": [p] * 10 + [i] * 9 + [f, f] + [p]}
+
+
+def start_parent_builds() -> dict:
+    """One nvcc a parent design of ``PARENT_SOURCES``, started now, with
+    its csrc's flags and ``-I csrc``: {kernel: (library path, process)}."""
+    from ash_renderer_tpu_torch import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    procs = {}
+    for k, (source, path) in PARENT_SOURCES.items():
+        out = os.path.join(_build.BUILD_DIR, f"parent_{k}.so")
+        cmd = _build._command(source, out)
+        cmd = cmd[:1] + ["-I", _build.CSRC] + cmd[1:-1] + [
+            os.path.join(ROOT, path)]
+        procs[k] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+    return procs
+
+
+def load_parents(procs: dict) -> None:
+    """Wait for ``start_parent_builds``' compilers and load the libraries
+    into ``PARENT_LIBS``, their entry points' argtypes set."""
+    import ctypes
+
+    argtypes = _parent_argtypes()
+    for k, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        require(proc.returncode == 0, f"parent {k}: build failed\n{log}")
+        lib = ctypes.CDLL(out)
+        for entry, types in argtypes.items():
+            if hasattr(lib, entry):
+                getattr(lib, entry).argtypes = types
+                getattr(lib, entry).restype = ctypes.c_int
+        PARENT_LIBS[k] = lib
+    say(f"built the parent designs {sorted(PARENT_LIBS)}: "
+        + ", ".join(path for _, path in PARENT_SOURCES.values()))
+
+
+def _parent_call(lib, entry: str, *args) -> None:
+    import torch
+
+    rc = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    require(rc == 0, f"parent {entry}: CUDA error {rc}")
+
+
+def parent_k10(lib, clip, attrs, tri_v, tri_mat, cfg, budget,
+               local_tri=None):
+    """The parent design's ``geometry_rows`` on ``lib``
+    (``experiments/k10_two_launch.cu``): the vertex launch, K5's gather on
+    a meshlet-packed scene, the cooperative triangle launch."""
+    import torch
+
+    from ash_renderer_tpu_torch.ops import geometry, meshlet_gather
+
+    dev = clip.device
+    v, t = clip.shape[0], tri_v.shape[0]
+    s = t + geometry.MAX_CLIP_TRIS * budget
+    snap = (cfg.width, cfg.height, cfg.min_coord, cfg.max_coord_x,
+            cfg.max_coord_y, cfg.subpixel_scale)
+    gx, gy = (float(g) for g in geometry.guard_factors(cfg))
+    attrs_full = torch.empty((v + geometry.MAX_CLIP_VERTS * budget,
+                              geometry.ATTR_COLS), dtype=torch.float32,
+                             device=dev)
+    n_vtx, n_rows = v * geometry.VTX_COLS, s * 20
+    n_scratch = len(geometry.COUNTERS) + 3 * -(-t // 4096) + budget + t
+    words = torch.empty(n_vtx + n_rows + n_scratch, dtype=torch.int32,
+                        device=dev)
+    vtx = words[:n_vtx].view(v, geometry.VTX_COLS)
+    rows = words[n_vtx:n_vtx + n_rows].view(s, 20)
+    scratch = words[n_vtx + n_rows:]
+    valid = torch.empty(s, dtype=torch.bool, device=dev)
+    _parent_call(lib, "ash_geometry_vertices", clip.data_ptr(),
+                 attrs.data_ptr(), vtx.data_ptr(), attrs_full.data_ptr(), v,
+                 *snap, gx, gy)
+    corners = (None if local_tri is None
+               else meshlet_gather.gather_tri_rows(vtx, local_tri))
+    _parent_call(lib, "ash_geometry_tris", vtx.data_ptr(),
+                 None if corners is None else corners.data_ptr(),
+                 clip.data_ptr(), attrs.data_ptr(), tri_v.data_ptr(),
+                 tri_mat.data_ptr(), scratch.data_ptr(), rows.data_ptr(),
+                 valid.data_ptr(), attrs_full.data_ptr(), v, t, budget, *snap,
+                 gx, gy)
+    stats = dict(zip(geometry.COUNTERS,
+                     scratch[: len(geometry.COUNTERS)].unbind()))
+    return rows, valid, attrs_full, {**stats, "n_setup": s}
+
+
+class forced_design:
+    """K10's wrapper made to take ``design`` ("cluster" or "grid") inside
+    the block."""
+
+    def __init__(self, design: str):
+        self.design = design
+
+    def __enter__(self):
+        from ash_renderer_tpu_torch.ops import geometry
+
+        self.real = geometry.k10_design
+        geometry.k10_design = lambda n_tris: self.design
+        return self
+
+    def __exit__(self, *exc):
+        from ash_renderer_tpu_torch.ops import geometry
+
+        geometry.k10_design = self.real
+        return False
+
+
 def frame_mats(r, cam):
     """(model, MVP, camera position) tensors of renderer ``r``'s frame for
     camera ``cam``, as ``Renderer.render_frame`` builds them."""
@@ -2954,6 +3091,12 @@ K12_OPS_PER_ROW = 20
 K12_OPS_PER_PAIR = 60
 
 
+def _say_legs(kernel: str, label: str, ms: dict, plain_ms, bound) -> None:
+    say(f"[{CARD}] {label}: {kernel} ms " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ms.items())
+        + f"; plain {plain_ms:.4f}; bound {bound[0]:.5f} ({bound[1]})")
+
+
 def k12_case(rows, valid, cfg, max_pairs: int, label: str, errs: dict,
              tile_row0: int = 0, tile_rows=None, reps=(0, 0)):
     """K12 (``binning.bin_rows``) against its plain version
@@ -2961,7 +3104,7 @@ def k12_case(rows, valid, cfg, max_pairs: int, label: str, errs: dict,
     entry: the records, inv_area2's bits, the boxes, the tile starts and
     counts, and the counters.  Folds the max |kernel - plain| into
     ``errs``.  Returns (K12's outputs, with ``reps`` (ms, plain ms, None,
-    (bound ms, bound by)), else None)."""
+    (bound ms, bound by)), else None); with ``reps`` it prints them."""
     from ash_renderer_tpu_torch.ops import binning, geometry
 
     args = (cfg, max_pairs, tile_row0, tile_rows)
@@ -2981,12 +3124,13 @@ def k12_case(rows, valid, cfg, max_pairs: int, label: str, errs: dict,
             f"K12 differs from its plain version ({label}): {err}, "
             f"counters {got_c} != {want_c}")
     errs["K12"] = max(errs.get("K12", 0), err)
-    tile_count = arrs[4]
+    tile_count = out[4]
     n_kept = int(tile_count.sum())
-    say(f"{label}: K12 bit-equal to plain; pairs {got_c['pairs_total']} "
-        f"(overflow {got_c['pairs_overflow']}), {n_kept} of {max_pairs} "
-        f"record columns live, {tile_count.numel()} tiles (max "
-        f"{int(tile_count.max())} a tile)")
+    say(f"{label}: K12 bit-equal to plain ({rows.shape[0]} setup rows); "
+        f"pairs {got_c['pairs_total']} (overflow {got_c['pairs_overflow']}), "
+        f"{n_kept} of {max_pairs} record columns live, {tile_count.numel()} "
+        f"tiles (max {int(tile_count.max()) if tile_count.numel() else 0} a "
+        "tile)")
     if not reps[0]:
         return out, None
     n_valid = int(valid.sum())
@@ -2997,12 +3141,63 @@ def k12_case(rows, valid, cfg, max_pairs: int, label: str, errs: dict,
                + max_pairs * 4 * binning.REC_ALL_ROWS
                + tile_count.numel() * 8 + 8)
     n_ops = n_valid * K12_OPS_PER_ROW + n_kept * K12_OPS_PER_PAIR
-    return out, (k_ms, p_ms, None, bound_ms(n_bytes, n_ops))
+    bound = bound_ms(n_bytes, n_ops)
+    _say_legs("K12", label, {"grid": k_ms}, p_ms, bound)
+    return out, (k_ms, p_ms, None, bound)
+
+
+def k10_case(g_args, local_tri, label: str, errs: dict, reps=(0, 0)):
+    """K10 (``geometry.geometry_rows``) against its plain version
+    (``geometry_device_plain``), bit for bit: the setup table against
+    ``setup_table`` of the plain fields, the valid flags, the combined
+    attributes and the counters; in the design the wrapper takes
+    (``geometry.k10_design``), in the other one, and in the parent design
+    (``parent_k10``).  ``g_args``: (clip, attrs, tri_v, tri_mat, cfg,
+    clip_budget).  Folds the max |kernel - plain| into ``errs``.  Returns
+    (rows, valid, attrs_full, stats of its own design, counters as ints,
+    its own design's ms, {leg: ms}, plain ms; the ms None without
+    ``reps``)."""
+    from ash_renderer_tpu_torch.ops import geometry
+
+    clip, _, tri_v, _, _, budget = g_args
+    design = geometry.k10_design(tri_v.shape[0])
+    (su_p, af_p, gst_p), p_ms = run_timed(
+        lambda: geometry.geometry_device_plain(*g_args, local_tri=local_tri),
+        reps[1])
+    w_rows, want = geometry.setup_table(su_p), {
+        k: int(v) for k, v in gst_p.items()}
+    def call():
+        return geometry.geometry_rows(*g_args, local_tri=local_tri)
+
+    def forced():
+        with forced_design("grid" if design == "cluster" else "cluster"):
+            return call()
+
+    # the wrapper's own design, the other one forced, the parent design
+    legs = {design: call, "grid" if design == "cluster" else "cluster": forced}
+    if "K10" in PARENT_LIBS:
+        legs["parent"] = lambda: parent_k10(PARENT_LIBS["K10"], *g_args,
+                                            local_tri)
+    out, ms = None, {}
+    for leg, fn in legs.items():
+        (rows, valid, af, gst), ms[leg] = run_timed(fn, reps[0])
+        err = _max_err([(rows, w_rows), (_bits(valid), _bits(su_p.valid)),
+                        (_bits(af), _bits(af_p))])
+        counters = {k: int(v) for k, v in gst.items()}
+        require(err == 0 and counters == want,
+                f"K10 ({leg}) differs from its plain version ({label}): "
+                f"{err}, counters {counters} != {want}")
+        errs["K10"] = max(errs.get("K10", 0), err)
+        out = out or (rows, valid, af, gst, counters)
+    say(f"{label}: K10 bit-equal to plain in {', '.join(legs)} (its own: "
+        f"{design}; {clip.shape[0]} vertices, {tri_v.shape[0]} triangles, "
+        f"budget {budget})")
+    return (*out, ms[design], ms, p_ms)
 
 
 def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
                       statics=None, local_tri=None, tile_row0: int = 0,
-                      tile_rows=None, cut_pairs: int = 0):
+                      tile_rows=None, cut_pairs=()):
     """K8C, K10, K12 and K11 against their plain versions, bit for bit, on
     the classic frame of renderer ``r``'s scene for camera ``cam``
     (``statics`` the classic statics, by default ``classic_statics(r)``;
@@ -3011,7 +3206,7 @@ def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
     and attribute rows, the setup table (``geometry_rows``, against
     ``setup_table`` of the plain version's fields), the valid flags, the
     combined attributes and the counters, K12's binning of that table
-    (``k12_case``; with ``cut_pairs``, also at that budget, which must cut
+    (``k12_case``; also at each budget of ``cut_pairs``, which must cut
     the frame's pairs), and the RGBA8 frame of K4's visibility buffer on
     K12's records.  Folds each max |kernel - plain| into ``errs``.
     Returns (the K11 frame on the host, the counters as ints, {kernel:
@@ -3039,31 +3234,18 @@ def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
     errs["K8C"] = max(errs.get("K8C", 0), err8)
 
     g_args = (clip, attrs, s.tri_v, s.tri_mat, cfg, st.clip_budget)
-    (rows, valid, af, gst), k10_ms = run_timed(
-        lambda: geometry.geometry_rows(*g_args, local_tri=local_tri), kr)
-    (su_p, af_p, gst_p), p10_ms = run_timed(
-        lambda: geometry.geometry_device_plain(*g_args, local_tri=local_tri),
-        pr)
-    err10 = _max_err([(rows, geometry.setup_table(su_p)),
-                      (_bits(valid), _bits(su_p.valid)),
-                      (_bits(af), _bits(af_p))])
-    counters = {k: int(v) for k, v in gst.items()}
-    want = {k: int(v) for k, v in gst_p.items()}
-    require(err10 == 0 and counters == want,
-            f"K10 differs from its plain version ({label}): {err10}, "
-            f"counters {counters} != {want}")
-    errs["K10"] = max(errs.get("K10", 0), err10)
-    del su_p, af_p
+    rows, valid, af, gst, counters, k10_ms, k10_legs, p10_ms = k10_case(
+        g_args, local_tri, label, errs, (kr, pr))
 
     (rec_i, rec_f, rec_box, start, count, _), t12 = k12_case(
         rows, valid, cfg, st.max_pairs, label, errs, tile_row0, tile_rows,
         (kr, pr))
-    if cut_pairs:
-        cut, _ = k12_case(rows, valid, cfg, cut_pairs,
-                          f"{label}, max_pairs {cut_pairs}", errs, tile_row0,
+    for budget in cut_pairs:
+        cut, _ = k12_case(rows, valid, cfg, budget,
+                          f"{label}, max_pairs {budget}", errs, tile_row0,
                           tile_rows)
         require(int(cut[-1]["pairs_overflow"]) > 0,
-                f"{label}: max_pairs {cut_pairs} cuts no pair")
+                f"{label}: max_pairs {budget} cuts no pair")
     _, vis_t = raster_visibility.rasterize_visibility(
         rec_i, rec_f, start, count, cfg, rec_box=rec_box, tile_rows=tile_rows)
     atlas = s.atlas if statics.has_atlas else None
@@ -3101,8 +3283,8 @@ def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
         # clip and attribute rows, tri_v, tri_mat (and local_tri) read; the
         # setup's fields (SETUP_ROW_FIELDS' words and the valid byte, not
         # the table's zero words), the combined attribute rows and the
-        # counters written (not the vertex rows, scratch between its two
-        # launches)
+        # counters written (not a meshlet-packed scene's vertex rows,
+        # scratch for K5's gather)
         n10 = (v * (16 + 48) + t * (12 + 4)
                + (0 if local_tri is None else t * 12)
                + n_setup * (4 * len(SETUP_ROW_FIELDS) + 1)
@@ -3123,6 +3305,16 @@ def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
                     bound_ms(n11, covered * K11_OPS_PER_SAMPLE)),
             "K12": t12,
         }
+        _say_legs("K10", label, k10_legs, p10_ms, timing["K10"][3])
+        # K4's bound on this frame's records (compare_classic's count:
+        # each live record's words once, the tile table, vis_d and vis_t)
+        n_rec = int(count.sum())
+        n_box = int(raster_visibility.box_pixels(rec_box[0, :n_rec]).sum())
+        b4 = bound_ms(n_rec * K4_WORDS_PER_REC * 4 + count.numel() * 8
+                      + 2 * vis_t.numel() * 4, n_box * K4_OPS_PER_REC_PX)
+        say(f"[{CARD}] {label}: K4's bound {b4[0]:.5f} ms ({b4[1]}): "
+            f"{n_rec} records, {n_box} box pixels, {covered} covered "
+            "samples")
         say(f"{label}: K11 reads {n_win} distinct winners; bytes K8C {n8}, "
             f"K10 {n10}, K11 {n11}")
     return rgba8.cpu().numpy(), counters, timing
@@ -3184,25 +3376,35 @@ def sources_launched(fn) -> set:
     return used
 
 
-# a pair budget that cuts the gate frame's pairs inside a triangle's
-# rectangle (phase 29 holds K12 to its plain version there)
-GATE_CUT_PAIRS = 128
+# pair budgets that cut the gate frame's pairs (phase 29 holds K12 to its
+# plain version at each): 128 ends on the last pair of the third triangle
+# with pairs (46 + 42 + 40 at orbit frame 0), 100 splits that triangle's
+# rectangle after 12 of its 40 pairs
+GATE_CUT_PAIRS = (128, 100)
+# the plain-packed config4 subdivisions phase 29 holds K10 and K12 on:
+# K10's crossover (geometry.K10_CLUSTER_MAX_TRIS) lies between 4 (5,120
+# triangles) and 5 (20,480)
+CROSSOVER_SUBDIVS = (4, 5)
 
 
 def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
     """Phase 29: K8C, K10, K12 and K11 against their plain versions on the
     card (``classic_glue_case``) on the gate scene at 800x600 on three
-    orbit frames (the first timed, and K12 on it at ``GATE_CUT_PAIRS``
-    too), the reference scene at 320x240, two clipping
+    orbit frames (the first timed, and K12 on it at each of
+    ``GATE_CUT_PAIRS`` too), the reference scene at 320x240, two clipping
     scenes under "classic" (one within its budget, one over it), the
     ``ssaa_srgb`` and ``multi_material`` golden scenes under "classic"
     (textured, lit; 2x SSAA and sRGB), the second of two row slabs of the
-    reference scene, and the meshlet-packed ``r5`` (config4 subdiv 5) at
-    ``cam5`` with its local corner ids (K5; timed too, K10 with K5's
-    gather); every frame EXACT against the port's oracle or its golden.
-    Then one gate frame's launches (route ``classic``: K8C, K10, K12, K4,
-    K11, no fused kernel), device kernels a frame (fewer than the 186 of
-    the frame with plain binning), one whole classic frame
+    reference scene, K10 and K12 on zero triangles (clip budgets 0 and
+    4096), a gate slab from its middle tile row, the plain-packed config4
+    frames of ``CROSSOVER_SUBDIVS`` and the meshlet-packed ``r5`` (config4
+    subdiv 5) at ``cam5`` with its local corner ids (K5; timed too, K10
+    with K5's gather); every frame EXACT against the port's oracle or its
+    golden where it has one; K10 in both its designs and in its parent
+    design.  Then one gate frame's launches (route ``classic``: K8C, K10
+    once, K12 once, K4, K11, no fused kernel; K10 in its cluster
+    design), device kernels a frame
+    (at most 6), one whole classic frame
     (``pipeline.render_frame``,
     its matrices on the card) under
     ``torch.cuda.set_sync_debug_mode("error")``, and the Renderer's own
@@ -3217,9 +3419,11 @@ def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
     import torch
 
     from ash_renderer_tpu_torch import _build, pipeline
-    from ash_renderer_tpu_torch.benchmarks import GOLDEN_SCENES, GOLDEN_SHA
+    from ash_renderer_tpu_torch.benchmarks import (GOLDEN_SCENES, GOLDEN_SHA,
+                                                   config4_million_tri)
     from ash_renderer_tpu_torch.camera import Camera, orbit_path
     from ash_renderer_tpu_torch.config import RendererSettings
+    from ash_renderer_tpu_torch.ops import binning, geometry
     from ash_renderer_tpu_torch.parallel import make_render_mesh, slab_rows
     from ash_renderer_tpu_torch.renderer import Renderer
 
@@ -3233,7 +3437,7 @@ def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
     for i in (0, 7, 15):
         f, _, t = classic_glue_case(rg, orbit[i], f"gate 800x600 orbit {i}",
                                     errs, timed=timing is None,
-                                    cut_pairs=GATE_CUT_PAIRS if i == 0 else 0)
+                                    cut_pairs=GATE_CUT_PAIRS if i == 0 else ())
         timing = timing or t
         o, o_s = oracle_frame(rg, orbit[i])
         require((f == o["rgba8"]).all(), f"gate orbit {i}: K11 frame != oracle")
@@ -3284,6 +3488,39 @@ def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
     require((f2 == ref_png).all(), "reference in 2 slabs != golden PNG")
     say("reference 320x240 in 2 row slabs: frame EXACT against the golden")
 
+    # zero triangles: a clip budget of 0 (S = 0) and the gate's (S =
+    # 28,672 dead rows), K10's table binned by K12
+    mats0 = frame_mats(rg, orbit[0])
+    clip0, attrs0 = geometry.transform_vertices(
+        rg.state.positions, rg.state.vert_obj, rg.state.normals,
+        rg.state.colors, rg.state.uvs, *mats0[:2])
+    for budget in (0, rg.statics.settings.clip_budget):
+        g0 = (clip0, attrs0, rg.state.tri_v[:0], rg.state.tri_mat[:0],
+              rg.statics.cfg, budget)
+        label = f"zero triangles, clip budget {budget}"
+        rows0, valid0, _, _, c0, _, _, _ = k10_case(g0, None, label, errs)
+        require(rows0.shape[0] == 7 * budget and c0["n_valid"] == 0,
+                f"{label}: {rows0.shape[0]} setup rows, {c0}")
+        k12_case(rows0, valid0, rg.statics.cfg, rg.statics.settings.max_pairs,
+                 label, errs)
+    # a gate slab whose first tile row is not 0
+    gate_rows = rg.statics.cfg.grid_h
+    classic_glue_case(rg, orbit[0], f"gate 800x600 slab of tile rows "
+                      f"{gate_rows // 2}-{gate_rows - 1}", errs,
+                      tile_row0=gate_rows // 2,
+                      tile_rows=gate_rows - gate_rows // 2)
+    # the plain-packed config4 frames, either side of each crossover
+    for n in CROSSOVER_SUBDIVS:
+        scene_n, st_n, cams_n = config4_million_tri(n)
+        rn = Renderer(scene_n, dataclasses.replace(st_n, **classic),
+                      device=dev)
+        f, _, _ = classic_glue_case(rn, cams_n[0],
+                                    f"config4 subdiv {n} plain", errs)
+        if n == 5:
+            require(sha(f) == g5["sha256"], "classic subdiv 5 plain != golden")
+            say("config4 subdiv 5, plain-packed: golden sha256 EXACT")
+        del rn
+
     require(r5.packed.local_tri is not None, "r5 is not meshlet-packed")
     lt = torch.from_numpy(r5.packed.local_tri).to(dev)
     f, _, t5 = classic_glue_case(r5, cam5, "config4 subdiv 5 meshlets", errs,
@@ -3302,6 +3539,12 @@ def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
     counts = dict(_build.launches)
     say(f"gate frame launches: {json.dumps(counts, sort_keys=True)}; route "
         + require_route("gate frame", counts, rg))
+    require(counts.get(geometry.KERNEL) == 1 and counts.get(binning.KERNEL) == 1,
+            f"gate frame: K10 and K12 do not launch once each: {counts}")
+    design = geometry.k10_design(rg.state.tri_v.shape[0])
+    require(design == "cluster", f"gate frame: K10 takes the {design}")
+    say("gate frame: K10 one launch (one thread block cluster's barriers), "
+        "K12 one launch (a cooperative grid)")
     for label, r, cam in (("gate frame", rg, orbit[4]),
                           ("config4 subdiv 5 frame", r5, orbit[4])):
         used = sources_launched(lambda: r.read_frame(r.render_frame(cam)[0]))
@@ -3311,10 +3554,10 @@ def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
         say(f"{label} ({r.settings.pipeline}): its kernels' sources are "
             f"_build.ROUTE_SOURCES[{r.settings.pipeline!r}]")
     n_dev = classic_launches_per_frame(rg, orbit[3])
-    require(n_dev < 186, f"gate frame: {n_dev} device kernels a frame")
+    require(n_dev <= 6, f"gate frame: {n_dev} device kernels a frame")
     say(f"[{card}] gate frame (classic, 800x600): {n_dev:.1f} device "
-        "kernels a frame (186 with plain binning, 701 with every glue "
-        "stage plain)")
+        "kernels a frame (7 with K10's two launches, 186 with plain "
+        "binning, 701 with every glue stage plain)")
     # one whole classic frame with its matrices on the card (the Renderer's
     # uploads of them from the host are copies that synchronize)
     mats = frame_mats(rg, orbit[5])
@@ -4134,8 +4377,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
+    global CARD
     with Phase("1 card"):
-        card = card_line()
+        card = CARD = card_line()
         say(card)
         say(f"torch {torch.__version__} cuda {torch.version.cuda} "
             f"python {sys.version.split()[0]}")
@@ -4146,8 +4390,10 @@ def main(argv=None) -> int:
 
     with Phase("2 build"):
         t0 = time.perf_counter()
+        parents = start_parent_builds()
         paths, logs = _build.build(tuple(_build.KERNELS) + _build.HOST_SOURCES,
                                    ptxas_report=True)
+        load_parents(parents)
         for src in paths:
             _build.load(src)
         say(f"built {len(logs)} of {len(paths)} libraries in "
