@@ -35,7 +35,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 HEADERS = ("specmath.cuh", "binsort.cuh", "coop.cuh", "clip.cuh",
-           "shade.cuh")
+           "shade.cuh", "vertex.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -118,6 +118,13 @@ KERNELS = {
         # width, height, min_c, max_cx, max_cy, ss, gx, gy, cluster (the
         # design), stream
         "ash_geometry_tris": [_P] * 9 + [_I] * 9 + [_F, _F, _I] + [_P],
+        # the two above on the scene's vertices, transformed in the launch:
+        # positions, vert_obj, normals, colors, uvs, model_mats, mvp_mats,
+        # n_obj in place of clip and attrs
+        "ash_geometry_vertices_scene": [_P] * 7 + [_I] + [_P] * 2 + [_I] * 7
+                                       + [_F, _F] + [_P],
+        "ash_geometry_tris_scene": [_P] * 8 + [_I] + [_P] * 6 + [_I] * 9
+                                   + [_F, _F, _I] + [_P],
     },
     "front_meta.cu": {
         # comb, order, bounds, rects, wrow, wrec, tile_cnt, row_cnt,
@@ -142,12 +149,13 @@ KERNELS = {
 }
 _ENTRY_SOURCE = {e: s for s, entries in KERNELS.items() for e in entries}
 # route -> the kernel sources its frames launch on a card, which
-# ``Renderer.warmup`` builds: the classic route's K8C, K10, K12, K4 and
-# K11 (the Renderer packs it plainly, so K5's gather.cu is not among them);
-# the fused route's front (K8, K1, K6, K2, K9), K3 / K3F and K7
+# ``Renderer.warmup`` builds: the classic route's K10 (the vertex transform
+# folded in), K12, K4 and K11 (the Renderer packs it plainly, so K5's
+# gather.cu is not among them); the fused route's front (K8, K1, K6, K2,
+# K9), K3 / K3F and K7
 ROUTE_SOURCES = {
-    "classic": ("transform.cu", "geometry.cu", "binning.cu",
-                "raster_classic.cu", "shade_pack.cu"),
+    "classic": ("geometry.cu", "binning.cu", "raster_classic.cu",
+                "shade_pack.cu"),
     "fused": ("transform.cu", "setup.cu", "clip_tail.cu", "bincount.cu",
               "front_meta.cu", "raster.cu", "shade_pack.cu"),
 }

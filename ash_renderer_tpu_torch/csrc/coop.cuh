@@ -15,12 +15,14 @@ namespace ash {
 // block a SM was slower, four no faster than two)
 constexpr int COOP_MAX_BLOCKS_PER_SM = 2;
 
-// `kernel`'s cooperative grid on the current device at `threads` a block:
-// the SMs times the blocks resident on each (at most
-// COOP_MAX_BLOCKS_PER_SM), queried once a device; the cache is one per
-// instantiation, and each cooperative kernel takes its own parameter struct
+// `kernel`'s cooperative grid on the current device at `threads` a block
+// and `smem` bytes of dynamic shared memory (the most a launch takes; one
+// that takes less fits the same grid): the SMs times the blocks resident
+// on each (at most COOP_MAX_BLOCKS_PER_SM), queried once a device; the
+// cache is one per instantiation, and each cooperative kernel takes its
+// own parameter struct
 template <class K>
-int coop_grid(K kernel, int threads, int* blocks) {
+int coop_grid(K kernel, int threads, int* blocks, size_t smem = 0) {
   static int cached[64];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -35,7 +37,7 @@ int coop_grid(K kernel, int threads, int* blocks) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, 0);
+                                                      threads, smem);
   if (e != cudaSuccess) return (int)e;
   if (!coop || per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   *blocks = sms * (per_sm < COOP_MAX_BLOCKS_PER_SM ? per_sm
@@ -48,18 +50,19 @@ int coop_grid(K kernel, int threads, int* blocks) {
 // cluster size is non-portable, which the kernel is allowed here) of
 // `threads` threads and `smem` bytes of dynamic shared memory, with its
 // one parameter struct, on `stream`: as many clusters as the card holds
-// at once, at most one a `blocks` SMs, at least one (the kernel's first
-// cluster does the work that needs its barriers, the others only work
-// that needs none; no cluster waits on another).  The attributes and the
-// occupancy query are made once a device per instantiation (each cluster
-// kernel takes its own parameter struct, and its `smem` is the same on
-// every call).  Returns the launch's CUDA error, or
+// at once at `smem_max` bytes (the most any launch of the kernel takes),
+// at most one a `blocks` SMs, at least one (the kernel's first cluster
+// does the work that needs its barriers, the others only work that needs
+// none; no cluster waits on another).  The attributes and the occupancy
+// query are made once a device per instantiation (each cluster kernel
+// takes its own parameter struct and passes the same `smem_max` on every
+// call).  Returns the launch's CUDA error, or
 // cudaErrorLaunchOutOfResources where the device holds no such cluster
 // (cudaOccupancyMaxActiveClusters gives 0): the caller raises, it does not
 // fall back.
 template <class K, class Params>
 int launch_cluster(K kernel, int blocks, int threads, size_t smem,
-                   void* stream, const Params& params) {
+                   size_t smem_max, void* stream, const Params& params) {
   static int clusters[64];  // per device: 0 not asked, -1 none fits
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -72,7 +75,7 @@ int launch_cluster(K kernel, int blocks, int threads, size_t smem,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = smem_max;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -81,9 +84,9 @@ int launch_cluster(K kernel, int blocks, int threads, size_t smem,
   if (n == 0) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
-    if (e == cudaSuccess && smem > 0)
+    if (e == cudaSuccess && smem_max > 0)
       e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+                               (int)smem_max);
     int active = 0, sms = 0;
     if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&active, fn, &cfg);
     if (e == cudaSuccess)
@@ -95,6 +98,7 @@ int launch_cluster(K kernel, int blocks, int threads, size_t smem,
   }
   if (n < 0) return (int)cudaErrorLaunchOutOfResources;
   cfg.gridDim = dim3(blocks * n);
+  cfg.dynamicSmemBytes = smem;
   void* args[] = {const_cast<Params*>(&params)};
   return (int)cudaLaunchKernelExC(&cfg, fn, args);
 }

@@ -1,7 +1,10 @@
-// K10: the classic route's triangle setup in one launch with no host read
-// on a plain-packed scene (a vertex launch first on a meshlet-packed one).
-// The plain torch version is
-// ash_renderer_tpu_torch/ops/geometry.py:geometry_device_plain.
+// K10: the classic route's vertex transform and triangle setup in one
+// launch with no host read on a plain-packed scene (a vertex launch first
+// on a meshlet-packed one).  The plain torch version is
+// ash_renderer_tpu_torch/ops/geometry.py:transform_vertices_plain, then
+// geometry_device_plain (the _scene entries, which the frame calls); the
+// entries without _scene take K8C's clip and attribute rows instead of
+// transforming (geometry_device_plain alone).
 //
 // It replaces no Pallas kernel.  The reference computes this stage as XLA
 // glue under one jit (ash_renderer_tpu/pipeline.py:680, _stage_geometry
@@ -10,23 +13,28 @@
 // candidate count every frame and the budgeted select's nonzero on every
 // frame that clips.
 //
-// Bound by bytes it barely moves: the vertex rows (16 bytes of clip
-// position and 48 of attributes read, 48 of copied attributes written a
-// vertex), the triangles' ids and materials, 73 bytes of setup fields a
+// Bound by bytes it barely moves: the scene's vertex tensors (52 bytes a
+// vertex: position, normal, colour, uv, object id) and the matrices read,
+// 48 bytes of transformed attributes written a vertex, the triangles' ids
+// and materials, 73 bytes of setup fields a
 // setup row (the 18 words and the valid byte) over the triangles and the
 // 7 x clip_budget tail rows, and 9 x clip_budget attribute rows, ~4 MB at
 // the default budget of 4096, nearly all of it the zeros of dead budget
 // slots: about a microsecond at 3.35 TB/s, which the launch exceeds.  So
 // the design is one launch (tri_kernel) in three passes split by two
 // barriers:
-// 1. setup: one thread a triangle snaps its three corners itself from
-//    their clip positions (geometry._vertex_post: vertex_post below), or
-//    on a meshlet-packed scene reads them from K5's gathered rows,
+// 0. each block stages the matrices of up to SMEM_OBJECTS objects in
+//    dynamic shared memory sized to the scene's objects at launch
+//    (vertex.cuh; more are read through the cache), so the
+//    transform has no launch of its own (K8C's arithmetic, op for op);
+// 1. setup: one thread a triangle transforms and snaps its three corners
+//    itself (geometry._vertex_post: vertex_post below), or on a
+//    meshlet-packed scene reads them from K5's gathered rows,
 //    classifies the triangle (fast, clip candidate or culled), writes its
 //    setup row (_finish_tri of a fast triangle, else zeros) and its flags,
 //    and each chunk of CHUNK rows counts its flags by warp ballots; on a
-//    plain-packed scene the launch also copies the V attribute rows into
-//    attrs_full;
+//    plain-packed scene the launch also writes the V transformed attribute
+//    rows into attrs_full;
 //    -- barrier --
 // 2. select: the first clip_budget candidates in ascending row order
 //    (clip.cuh), -1 fill; every block knows the candidates in all, and the
@@ -48,11 +56,14 @@
 // (one GPC writes the ~4 MB of zeros at a fraction of the card's rate),
 // waiting on no other cluster.  Past the crossover the wrapper measured
 // (ops/geometry.py k10_design), the same passes run as one cooperative
-// launch, its grid sized from the occupancy (tri_kernel<false>).  On a meshlet-packed scene the vertex
-// launch (vertex_kernel: the snap, 1/w and the 10-bit outcode as an (8,)
-// int32 row, and the vertex's attribute row copied into attrs_full) runs
-// first, then K5 gathers the three corner rows of each triangle from
-// those rows (the caller's launch).
+// launch, its grid sized from the occupancy (tri_kernel<false>).  On a
+// meshlet-packed scene the vertex launch (vertex_kernel: the vertex
+// transformed, its snap, 1/w and the 10-bit outcode as an (8,) int32 row,
+// and its attribute row written into attrs_full) runs first, then K5
+// gathers the three corner rows of each triangle from those rows (the
+// caller's launch).  The clip pass transforms its candidates' corners
+// again, one channel a lane, rather than keep every vertex's clip
+// position in scratch.
 //
 // The setup rows are one (S, SETUP_COLS) int32 table in the order of
 // rtypes.SETUP_ROW_FIELDS (x0, y0, x1, y1, x2, y2, inv_area2, iw0-2,
@@ -62,6 +73,9 @@
 // array of the valid flags, which is no column of the table.
 //
 // Exactness, as the plain chain computes it:
+// * the transform is vertex.cuh's, K8C's arithmetic (specmath's
+//   apply_mat4_point / apply_mat3_vec op for op, colour and uv as bits),
+//   so a value transformed here is the one K8C writes;
 // * the vertex snap is K1's corner() (setup.cu) and _vertex_post's:
 //   recip_spec(w) (non-finite -> 0), snap_coord, quantize_depth, the
 //   plane distances with fmul / fadd / fsub, no FMA; a corner snapped in
@@ -80,6 +94,7 @@
 #include "clip.cuh"
 #include "coop.cuh"
 #include "specmath.cuh"
+#include "vertex.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -106,10 +121,71 @@ constexpr int SETUP_COLS = 20;    // rtypes.SETUP_COLS
 constexpr int C_CLIPPED = 0, C_OVERFLOW = 1, C_VALID = 2, C_FAST = 3;
 constexpr int N_COUNTERS = 4;
 constexpr int N_COUNTS = 3;
+// the most dynamic shared memory a block takes: the matrices it stages
+// (vertex.cuh), model, then MVP, of SMEM_OBJECTS objects
+constexpr size_t MATS_MAX_BYTES =
+    2 * (size_t)vertex::SMEM_OBJECTS * vertex::MAT * sizeof(float);
 
-struct VtxParams {
+// a launch's vertices: the scene's (scene.pos set: each value the launch
+// needs is transformed here, vertex.cuh), or K8C's rows (cpos, attrs)
+struct Verts {
   const float4* cpos;   // (V, 4) clip positions
   const float4* attrs;  // (V, 12) as 3 float4 a row
+  vertex::Scene scene;
+};
+
+// the dynamic shared memory a launch on V takes: the matrices of the
+// scene's first SMEM_OBJECTS objects, none on K8C's rows
+size_t mats_bytes(const Verts& V) {
+  if (V.scene.pos == nullptr) return 0;
+  const int o = V.scene.n_obj;
+  const int n = o < 0 ? 0 : o < vertex::SMEM_OBJECTS ? o : vertex::SMEM_OBJECTS;
+  return 2 * (size_t)n * vertex::MAT * sizeof(float);
+}
+
+// stage the scene's matrices into `mats` (nothing for K8C's rows); the
+// block synchronizes before reading them
+__device__ __forceinline__ void stage_mats(const Verts& V, float* mats) {
+  if (V.scene.pos != nullptr)
+    vertex::stage_mats(V.scene, mats, threadIdx.x, blockDim.x);
+  __syncthreads();
+}
+
+// vertex v's clip position
+__device__ __forceinline__ float4 clip_pos(const Verts& V, const float* mats,
+                                           int v) {
+  return V.scene.pos != nullptr ? vertex::clip_of(V.scene, mats, v)
+                                : V.cpos[v];
+}
+
+// vertex v's attribute row (12 floats as 3 float4) into dst
+__device__ __forceinline__ void copy_attrs(const Verts& V, const float* mats,
+                                           int v, float4* dst) {
+  if (V.scene.pos != nullptr) {
+    int r[vertex::N_ROWS];
+    vertex::values(V.scene, mats, v, r);
+#pragma unroll
+    for (int q = 0; q < ATTR / 4; ++q)
+      dst[q] = make_float4(fbits(r[4 + 4 * q]), fbits(r[5 + 4 * q]),
+                           fbits(r[6 + 4 * q]), fbits(r[7 + 4 * q]));
+  } else {
+#pragma unroll
+    for (int q = 0; q < ATTR / 4; ++q)
+      dst[q] = V.attrs[(size_t)v * (ATTR / 4) + q];
+  }
+}
+
+// value ch of vertex v: clip 0-3, then the 12 attributes
+__device__ __forceinline__ float channel(const Verts& V, const float* mats,
+                                         int v, int ch) {
+  if (V.scene.pos != nullptr) return vertex::value(V.scene, mats, v, ch);
+  return ch < 4 ? reinterpret_cast<const float*>(V.cpos)[(size_t)v * 4 + ch]
+                : reinterpret_cast<const float*>(V.attrs)[(size_t)v * ATTR
+                                                          + ch - 4];
+}
+
+struct VtxParams {
+  Verts verts;
   int4* vtx;            // (V, 8) as 2 int4 a row
   float4* attrs_full;   // (V + 9 * budget, 12): rows [0, V) here
   int n_verts;
@@ -147,24 +223,23 @@ __device__ __forceinline__ VtxPost vertex_post(const float4 c,
   return VtxPost{s.x, s.y, s.zq, bits(s.iw), oc};
 }
 
-// a vertex's row, and its attribute row copied
+// a vertex's row, and its attribute row transformed (or copied from K8C's)
 __global__ void __launch_bounds__(VTX_THREADS)
 vertex_kernel(const VtxParams P) {
+  extern __shared__ float mats[];  // mats_bytes(P.verts)
+  stage_mats(P.verts, mats);
   const int v = blockIdx.x * VTX_THREADS + threadIdx.x;
   if (v >= P.n_verts) return;
-  const VtxPost q = vertex_post(P.cpos[v], P.snap, P.gx, P.gy);
+  const VtxPost q =
+      vertex_post(clip_pos(P.verts, mats, v), P.snap, P.gx, P.gy);
   P.vtx[2 * (size_t)v] = make_int4(q.x, q.y, q.zq, q.iw);
   P.vtx[2 * (size_t)v + 1] = make_int4(q.oc, 0, 0, 0);
-#pragma unroll
-  for (int q4 = 0; q4 < ATTR / 4; ++q4)
-    P.attrs_full[(size_t)v * (ATTR / 4) + q4] =
-        P.attrs[(size_t)v * (ATTR / 4) + q4];
+  copy_attrs(P.verts, mats, v, P.attrs_full + (size_t)v * (ATTR / 4));
 }
 
 struct TriParams {
   const int* corners;  // (T, 24) K5's gathered corner rows, or null: snap
-  const float* cpos;   // (V, 4) clip positions
-  const float* attrs;  // (V, 12)
+  Verts verts;
   const int* tri_v;    // (T, 3)
   const int* tri_mat;  // (T,)
   int* scratch;
@@ -196,7 +271,8 @@ __device__ __forceinline__ void write_row(int* row, bool valid, int ax,
 // pass 1 for triangle t: classify, write its setup row and valid flag
 // (with `write`); returns its flags (valid | clip candidate << 1 | fast
 // << 2)
-__device__ __forceinline__ int setup_tri(const TriParams& P, int t,
+__device__ __forceinline__ int setup_tri(const TriParams& P,
+                                         const float* mats, int t,
                                          bool write) {
   const int* tv = P.tri_v + (size_t)t * 3;
   int vid[3];
@@ -210,9 +286,8 @@ __device__ __forceinline__ int setup_tri(const TriParams& P, int t,
       cr[k] = *reinterpret_cast<const int4*>(row);
       oc[k] = row[4];
     } else {
-      const VtxPost q = vertex_post(
-          reinterpret_cast<const float4*>(P.cpos)[vid[k]], P.snap, P.gx,
-          P.gy);
+      const VtxPost q =
+          vertex_post(clip_pos(P.verts, mats, vid[k]), P.snap, P.gx, P.gy);
       cr[k] = make_int4(q.x, q.y, q.zq, q.iw);
       oc[k] = q.oc;
     }
@@ -268,6 +343,8 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(const TriParams P) {
   __shared__ float poly[SLOTS][POLY][N_TBL];
   __shared__ int poly_n[SLOTS];
   __shared__ int s_clip;  // a cluster block's candidates, read by its ranks
+  extern __shared__ float mats[];  // mats_bytes(P.verts)
+  stage_mats(P.verts, mats);
   const int tid = threadIdx.x;
   const int n = P.n_tris, budget = P.budget;
   const int n_chunks = (n + CHUNK - 1) / CHUNK;
@@ -301,10 +378,9 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(const TriParams P) {
   // triangles zeroed
   if (zeroer) zero_slots(P, sure, budget, gt - skip, nt - skip);
   if (P.corners == nullptr) {
-    const float4* src = reinterpret_cast<const float4*>(P.attrs);
     float4* dst = reinterpret_cast<float4*>(P.attrs_full);
-    for (long long i = gt; i < (long long)P.n_verts * (ATTR / 4); i += nt)
-      dst[i] = src[i];
+    for (long long v = gt; v < P.n_verts; v += nt)
+      copy_attrs(P.verts, mats, (int)v, dst + v * (ATTR / 4));
   }
   int n_clip_w = 0;  // a warp's candidates (each lane holds its warp's)
   for (int c = part; c < n_chunks; c += parts) {
@@ -314,7 +390,7 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(const TriParams P) {
       const int t = c * CHUNK + k * THREADS + tid;
       int f = 0;
       if (t < n) {
-        f = setup_tri(P, t, main);
+        f = setup_tri(P, mats, t, main);
         if (main) flags[t] = f;
       }
       clip::add_flags(fc, f);
@@ -392,8 +468,7 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(const TriParams P) {
       for (int k = 0; k < 3; ++k) {
         const int vi = min(max(P.tri_v[(size_t)tri * 3 + k], 0),
                            P.n_verts - 1);
-        buf[k] = ch < 4 ? P.cpos[(size_t)vi * 4 + ch]
-                        : P.attrs[(size_t)vi * ATTR + ch - 4];
+        buf[k] = channel(P.verts, mats, vi, ch);
       }
 #pragma unroll
       for (int s = 3; s < POLY; ++s) buf[s] = 0.0f;
@@ -433,16 +508,11 @@ __global__ void __launch_bounds__(THREADS) tri_kernel(const TriParams P) {
   }
 }
 
-}  // namespace
-
-extern "C" int ash_geometry_vertices(const float* cpos, const float* attrs,
-                                     int* vtx, float* attrs_full,
-                                     int n_verts, int width, int height,
-                                     int min_c, int max_cx, int max_cy,
-                                     int ss, float gx, float gy,
-                                     void* stream) {
-  const VtxParams P{reinterpret_cast<const float4*>(cpos),
-                    reinterpret_cast<const float4*>(attrs),
+int launch_vertices(const Verts& V, int* vtx, float* attrs_full,
+                    int n_verts, int width, int height, int min_c,
+                    int max_cx, int max_cy, int ss, float gx, float gy,
+                    void* stream) {
+  const VtxParams P{V,
                     reinterpret_cast<int4*>(vtx),
                     reinterpret_cast<float4*>(attrs_full),
                     n_verts,
@@ -451,21 +521,18 @@ extern "C" int ash_geometry_vertices(const float* cpos, const float* attrs,
                     gy};
   const int blocks = (n_verts + VTX_THREADS - 1) / VTX_THREADS;
   if (blocks > 0)
-    vertex_kernel<<<blocks, VTX_THREADS, 0, (cudaStream_t)stream>>>(P);
+    vertex_kernel<<<blocks, VTX_THREADS, mats_bytes(V),
+                    (cudaStream_t)stream>>>(P);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ash_geometry_tris(const int* corners, const float* cpos,
-                                 const float* attrs, const int* tri_v,
-                                 const int* tri_mat, int* scratch, int* table,
-                                 void* valid, float* attrs_full, int n_verts,
-                                 int n_tris, int budget, int width, int height,
-                                 int min_c, int max_cx, int max_cy, int ss,
-                                 float gx, float gy, int cluster,
-                                 void* stream) {
+int launch_tris(const int* corners, const Verts& V, const int* tri_v,
+                const int* tri_mat, int* scratch, int* table, void* valid,
+                float* attrs_full, int n_verts, int n_tris, int budget,
+                int width, int height, int min_c, int max_cx, int max_cy,
+                int ss, float gx, float gy, int cluster, void* stream) {
   TriParams P{corners,
-              cpos,
-              attrs,
+              V,
               tri_v,
               tri_mat,
               scratch,
@@ -478,14 +545,86 @@ extern "C" int ash_geometry_tris(const int* corners, const float* cpos,
               clip::SnapCfg{width, height, min_c, max_cx, max_cy, ss},
               gx,
               gy};
+  // the grids are sized at the most shared memory a launch takes, so a
+  // grid that fits holds at any launch's
+  const size_t smem = mats_bytes(V);
   if (cluster)
-    return ash::launch_cluster(tri_kernel<true>, CL_BLOCKS, THREADS, 0, stream,
-                               P);
+    return ash::launch_cluster(tri_kernel<true>, CL_BLOCKS, THREADS, smem,
+                               MATS_MAX_BYTES, stream, P);
   int blocks = 0;
-  const int rc = ash::coop_grid(tri_kernel<false>, THREADS, &blocks);
+  const int rc =
+      ash::coop_grid(tri_kernel<false>, THREADS, &blocks, MATS_MAX_BYTES);
   if (rc != 0) return rc;
   void* args[] = {&P};
   return (int)cudaLaunchCooperativeKernel((const void*)tri_kernel<false>,
                                           dim3(blocks), dim3(THREADS), args,
-                                          0, (cudaStream_t)stream);
+                                          smem, (cudaStream_t)stream);
+}
+
+Verts scene_verts(const float* pos, const int* vobj, const float* nrm,
+                  const int* col, const int* uv, const float* model,
+                  const float* mvp, int n_obj) {
+  return Verts{nullptr, nullptr,
+               vertex::Scene{pos, vobj, nrm, col, uv, model, mvp, n_obj}};
+}
+
+Verts row_verts(const float* cpos, const float* attrs) {
+  return Verts{reinterpret_cast<const float4*>(cpos),
+               reinterpret_cast<const float4*>(attrs),
+               vertex::Scene{nullptr, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, nullptr, 0}};
+}
+
+}  // namespace
+
+// on K8C's rows: clip (V, 4), attrs (V, 12)
+extern "C" int ash_geometry_vertices(const float* cpos, const float* attrs,
+                                     int* vtx, float* attrs_full,
+                                     int n_verts, int width, int height,
+                                     int min_c, int max_cx, int max_cy,
+                                     int ss, float gx, float gy,
+                                     void* stream) {
+  return launch_vertices(row_verts(cpos, attrs), vtx, attrs_full, n_verts,
+                         width, height, min_c, max_cx, max_cy, ss, gx, gy,
+                         stream);
+}
+
+extern "C" int ash_geometry_tris(const int* corners, const float* cpos,
+                                 const float* attrs, const int* tri_v,
+                                 const int* tri_mat, int* scratch, int* table,
+                                 void* valid, float* attrs_full, int n_verts,
+                                 int n_tris, int budget, int width, int height,
+                                 int min_c, int max_cx, int max_cy, int ss,
+                                 float gx, float gy, int cluster,
+                                 void* stream) {
+  return launch_tris(corners, row_verts(cpos, attrs), tri_v, tri_mat,
+                     scratch, table, valid, attrs_full, n_verts, n_tris,
+                     budget, width, height, min_c, max_cx, max_cy, ss, gx,
+                     gy, cluster, stream);
+}
+
+// on the scene's vertices and matrices (K8C's inputs), transformed here
+extern "C" int ash_geometry_vertices_scene(
+    const float* pos, const int* vobj, const float* nrm, const int* col,
+    const int* uv, const float* model, const float* mvp, int n_obj, int* vtx,
+    float* attrs_full, int n_verts, int width, int height, int min_c,
+    int max_cx, int max_cy, int ss, float gx, float gy, void* stream) {
+  return launch_vertices(
+      scene_verts(pos, vobj, nrm, col, uv, model, mvp, n_obj), vtx,
+      attrs_full, n_verts, width, height, min_c, max_cx, max_cy, ss, gx, gy,
+      stream);
+}
+
+extern "C" int ash_geometry_tris_scene(
+    const int* corners, const float* pos, const int* vobj, const float* nrm,
+    const int* col, const int* uv, const float* model, const float* mvp,
+    int n_obj, const int* tri_v, const int* tri_mat, int* scratch,
+    int* table, void* valid, float* attrs_full, int n_verts, int n_tris,
+    int budget, int width, int height, int min_c, int max_cx, int max_cy,
+    int ss, float gx, float gy, int cluster, void* stream) {
+  return launch_tris(corners,
+                     scene_verts(pos, vobj, nrm, col, uv, model, mvp, n_obj),
+                     tri_v, tri_mat, scratch, table, valid, attrs_full,
+                     n_verts, n_tris, budget, width, height, min_c, max_cx,
+                     max_cy, ss, gx, gy, cluster, stream);
 }

@@ -13,18 +13,22 @@ computes both stages as XLA glue under one jit, ``_stage_geometry``,
 
 * K8C (``transform_vertices``, ``csrc/transform.cu``): the vertex
   transform in row layout, one launch where eager torch pays ~64; its
-  plain version is ``transform_vertices_plain``.
-* K10 (``geometry_device``, ``csrc/geometry.cu``): the classic setup in
-  one launch that snaps each triangle's corners, sets the triangles up,
+  plain version is ``transform_vertices_plain``.  No frame path launches
+  it: K10 transforms the vertices it reads itself.
+* K10 (``stage_geometry_rows``, the reference's ``_stage_geometry``, which
+  the frames call; ``geometry_rows`` / ``geometry_device`` on K8C's rows;
+  ``csrc/geometry.cu``): the classic transform and setup in one launch
+  that transforms and snaps each triangle's corners, sets the triangles up,
   selects the clip candidates and clips them (a vertex launch first, and
   K5's corner gather, on a meshlet-packed scene), its passes split by the
   barriers of one thread block cluster at the classic route's sizes or of
   one cooperative grid past them (``k10_design``), with no host read,
   where eager torch pays hundreds of launches, a host read of the
   candidate count on every frame and the select's ``nonzero`` on every
-  frame that clips; its plain version is ``geometry_device_plain``.  It
-  writes the setup as one (S, ``SETUP_COLS``) table (``geometry_rows``,
-  which the classic frame binds to binning and to K11) beside a bool
+  frame that clips; its plain version is ``transform_vertices_plain``
+  then ``geometry_device_plain``.  It writes the setup as one (S,
+  ``SETUP_COLS``) table (which the classic frame binds to binning and to
+  K11) beside a bool
   ``valid`` array, and the counters as 0-dim int32 tensors on the
   device.
 
@@ -392,22 +396,32 @@ def _vertex_post(clip, cfg):
     )
 
 
-def _check_geometry_args(clip, attrs, tri_v, tri_mat, local_tri):
-    dev = clip.device
-    v, t = clip.shape[0], tri_v.shape[0]
-    args = [("clip", clip, torch.float32, (v, 4)),
-            ("attrs", attrs, torch.float32, (v, ATTR_COLS)),
-            ("tri_v", tri_v, torch.int32, (t, 3)),
+def _check_tri_args(fn: str, v: int, dev, tri_v, tri_mat, local_tri):
+    t = tri_v.shape[0]
+    args = [("tri_v", tri_v, torch.int32, (t, 3)),
             ("tri_mat", tri_mat, torch.int32, (t,))]
     if local_tri is not None:
         args.append(("local_tri", local_tri, torch.int32, (t, 3)))
     for name, x, dtype, shape in args:
         if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
                 or not x.is_contiguous()):
-            raise ValueError(f"geometry_device: bad {name} {x.dtype} "
+            raise ValueError(f"{fn}: bad {name} {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
     if v < 1:
-        raise ValueError("geometry_device: no vertices")
+        raise ValueError(f"{fn}: no vertices")
+
+
+def _check_geometry_args(clip, attrs, tri_v, tri_mat, local_tri):
+    dev = clip.device
+    v = clip.shape[0]
+    for name, x, dtype, shape in (
+            ("clip", clip, torch.float32, (v, 4)),
+            ("attrs", attrs, torch.float32, (v, ATTR_COLS))):
+        if (x.device != dev or x.dtype != dtype or tuple(x.shape) != shape
+                or not x.is_contiguous()):
+            raise ValueError(f"geometry_device: bad {name} {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    _check_tri_args("geometry_device", v, dev, tri_v, tri_mat, local_tri)
 
 
 def setup_table(su):
@@ -448,14 +462,44 @@ def scratch_words(n_verts: int, n_tris: int, clip_budget: int,
             + 3 * -(-n_tris // K10_CHUNK) + clip_budget + n_tris)
 
 
+def _k10_outputs(v: int, t: int, b: int, meshlets: bool, dev):
+    """K10's outputs and scratch on ``dev``: (rows (S, SETUP_COLS), valid
+    (S,) bool, attrs_full, scratch, the snapped vertex rows (V, VTX_COLS)
+    K5 gathers from, or None on a plain-packed scene).  One int32
+    allocation holds the vertex rows, the setup rows (16-byte aligned
+    after them), then the counters, the per-chunk counts, sel and the row
+    flags."""
+    s = t + MAX_CLIP_TRIS * b
+    attrs_full = torch.empty((v + MAX_CLIP_VERTS * b, ATTR_COLS),
+                             dtype=torch.float32, device=dev)
+    n_vtx = v * VTX_COLS if meshlets else 0
+    words = torch.empty(s * SETUP_COLS + scratch_words(v, t, b, meshlets),
+                        dtype=torch.int32, device=dev)
+    rows = words[n_vtx : n_vtx + s * SETUP_COLS].view(s, SETUP_COLS)
+    scratch = words[n_vtx + s * SETUP_COLS :]
+    valid = torch.empty(s, dtype=torch.bool, device=dev)
+    vtx = words[:n_vtx].view(v, VTX_COLS) if meshlets else None
+    return rows, valid, attrs_full, scratch, vtx
+
+
+def _snap_args(cfg):
+    """K10's snap and guard arguments: width, height, min_c, max_cx,
+    max_cy, ss, gx, gy."""
+    gx, gy = (float(g) for g in guard_factors(cfg))
+    return (cfg.width, cfg.height, cfg.min_coord, cfg.max_coord_x,
+            cfg.max_coord_y, cfg.subpixel_scale, gx, gy)
+
+
 def geometry_rows(clip, attrs, tri_v, tri_mat, cfg, clip_budget: int,
                   local_tri=None):
     """``geometry_device`` with the setup as one table: (rows (S,
     SETUP_COLS) int32, ``setup_table``'s layout, valid (S,) bool,
     combined attributes, stats).  CPU tensors take the plain version and
-    pack its fields; CUDA tensors launch kernel K10 (one launch on a
-    plain-packed scene, a vertex launch and K5's gather first on a
-    meshlet-packed one; no host read), which writes the table itself."""
+    pack its fields; CUDA tensors launch kernel K10 on the clip and
+    attribute rows (one launch on a plain-packed scene, a vertex launch
+    and K5's gather first on a meshlet-packed one; no host read), which
+    writes the table itself.  A frame calls ``stage_geometry_rows``, which
+    transforms the vertices in the same launch."""
     dev = clip.device
     _check_geometry_args(clip, attrs, tri_v, tri_mat, local_tri)
     if dev.type == "cpu":
@@ -469,37 +513,72 @@ def geometry_rows(clip, attrs, tri_v, tri_mat, cfg, clip_budget: int,
             raise ValueError(f"geometry_device: {name} is not 16-byte "
                              "aligned")
     v, t, b = clip.shape[0], tri_v.shape[0], clip_budget
-    s = t + MAX_CLIP_TRIS * b
-    snap = (cfg.width, cfg.height, cfg.min_coord, cfg.max_coord_x,
-            cfg.max_coord_y, cfg.subpixel_scale)
-    gx, gy = (float(g) for g in guard_factors(cfg))
-    attrs_full = torch.empty((v + MAX_CLIP_VERTS * b, ATTR_COLS),
-                             dtype=torch.float32, device=dev)
-    # one allocation: the snapped vertex rows (meshlet-packed only), the
-    # setup rows (16-byte aligned after them), then the counters, the
-    # per-chunk counts, sel and the row flags
-    n_vtx = v * VTX_COLS if local_tri is not None else 0
-    words = torch.empty(s * SETUP_COLS + scratch_words(
-        v, t, b, local_tri is not None), dtype=torch.int32, device=dev)
-    rows = words[n_vtx : n_vtx + s * SETUP_COLS].view(s, SETUP_COLS)
-    scratch = words[n_vtx + s * SETUP_COLS :]
-    valid = torch.empty(s, dtype=torch.bool, device=dev)
+    rows, valid, attrs_full, scratch, vtx = _k10_outputs(
+        v, t, b, local_tri is not None, dev)
+    snap = _snap_args(cfg)
     corners = None
     if local_tri is not None:
-        vtx = words[:n_vtx].view(v, VTX_COLS)
         _build.launch(KERNEL, "ash_geometry_vertices", dev, clip.data_ptr(),
                       attrs.data_ptr(), vtx.data_ptr(),
-                      attrs_full.data_ptr(), v, *snap, gx, gy)
+                      attrs_full.data_ptr(), v, *snap)
         corners = meshlet_gather.gather_tri_rows(vtx, local_tri)
     _build.launch(
         KERNEL, "ash_geometry_tris", dev,
         None if corners is None else corners.data_ptr(), clip.data_ptr(),
         attrs.data_ptr(), tri_v.data_ptr(), tri_mat.data_ptr(),
         scratch.data_ptr(), rows.data_ptr(), valid.data_ptr(),
-        attrs_full.data_ptr(), v, t, b, *snap, gx, gy,
+        attrs_full.data_ptr(), v, t, b, *snap,
         int(k10_design(t) == "cluster"))
     stats = dict(zip(COUNTERS, scratch[: len(COUNTERS)].unbind()))
-    return rows, valid, attrs_full, {**stats, "n_setup": s}
+    return rows, valid, attrs_full, {**stats, "n_setup": rows.shape[0]}
+
+
+def stage_geometry_rows(positions, vert_obj, normals, colors, uvs,
+                        model_mats, mvp_mats, tri_v, tri_mat, cfg,
+                        clip_budget: int, local_tri=None):
+    """The classic frame's geometry stage, as the reference's
+    ``_stage_geometry`` (``ash_renderer_tpu/pipeline.py:680``) computes it:
+    ``transform_vertices`` on the scene's vertex tensors and (O, 4, 4)
+    matrices, then ``geometry_rows`` (arguments and returns as there).
+    Raises ``ValueError`` on arguments the kernel does not take.  CPU
+    tensors take the plain versions (``transform_vertices_plain``, then
+    ``geometry_device_plain``); CUDA tensors launch kernel K10 with the
+    transform folded in: each pass transforms the vertices it reads
+    (``csrc/vertex.cuh``, K8C's arithmetic), so K8C has no launch; one
+    launch on a plain-packed scene, a vertex launch and K5's gather first
+    on a meshlet-packed one; no host read."""
+    dev = positions.device
+    check_transform_args("stage_geometry_rows", positions, vert_obj, normals,
+                         colors, uvs, model_mats, mvp_mats)
+    _check_tri_args("stage_geometry_rows", positions.shape[0], dev, tri_v,
+                    tri_mat, local_tri)
+    if dev.type == "cpu":
+        clip, attrs = transform_vertices_plain(
+            positions, vert_obj, normals, colors, uvs, model_mats, mvp_mats)
+        return geometry_rows(clip, attrs, tri_v, tri_mat, cfg, clip_budget,
+                             local_tri)
+    if dev.type != "cuda":
+        raise ValueError(f"stage_geometry_rows: unsupported device {dev}")
+    v, t, b = positions.shape[0], tri_v.shape[0], clip_budget
+    rows, valid, attrs_full, scratch, vtx = _k10_outputs(
+        v, t, b, local_tri is not None, dev)
+    scene = (positions.data_ptr(), vert_obj.data_ptr(), normals.data_ptr(),
+             colors.data_ptr(), uvs.data_ptr(), model_mats.data_ptr(),
+             mvp_mats.data_ptr(), model_mats.shape[0])
+    snap = _snap_args(cfg)
+    corners = None
+    if local_tri is not None:
+        _build.launch(KERNEL, "ash_geometry_vertices_scene", dev, *scene,
+                      vtx.data_ptr(), attrs_full.data_ptr(), v, *snap)
+        corners = meshlet_gather.gather_tri_rows(vtx, local_tri)
+    _build.launch(
+        KERNEL, "ash_geometry_tris_scene", dev,
+        None if corners is None else corners.data_ptr(), *scene,
+        tri_v.data_ptr(), tri_mat.data_ptr(), scratch.data_ptr(),
+        rows.data_ptr(), valid.data_ptr(), attrs_full.data_ptr(), v, t, b,
+        *snap, int(k10_design(t) == "cluster"))
+    stats = dict(zip(COUNTERS, scratch[: len(COUNTERS)].unbind()))
+    return rows, valid, attrs_full, {**stats, "n_setup": rows.shape[0]}
 
 
 def geometry_device(clip, attrs, tri_v, tri_mat, cfg, clip_budget: int,

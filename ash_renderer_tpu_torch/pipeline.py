@@ -2,12 +2,13 @@
 
 The counterpart of ``ash_renderer_tpu/pipeline.py``'s two pipelines.  The
 classic one (``render_frame``, which the Renderer takes for small scenes):
-vertex transform (kernel K8C, ``geometry.transform_vertices``), triangle
-setup as one table of rows (kernel K10, ``geometry.geometry_rows``, with
-kernel K5 on a meshlet-packed scene), tile binning from that table (kernel
-K12, ``binning.bin_rows``), visibility raster (kernel K4,
-``raster_visibility.rasterize_visibility``), per-pixel winner gather,
-shading, resolve + pack (kernel K11, ``shade.shade_pack_classic``).
+vertex transform and triangle setup as one table of rows, the reference's
+``_stage_geometry`` (kernel K10 with the transform folded in,
+``geometry.stage_geometry_rows``, with kernel K5 on a meshlet-packed
+scene), tile binning from that table (kernel K12, ``binning.bin_rows``),
+visibility raster (kernel K4, ``raster_visibility.rasterize_visibility``),
+per-pixel winner gather, shading, resolve + pack (kernel K11,
+``shade.shade_pack_classic``).
 
 The fused one (``render_frame_fused_staged``, meshlet-packed scenes).
 Stages, each a plain call on tensors of one device:
@@ -32,8 +33,9 @@ Stages 1-5 (the front) depend only on the scene and the model + MVP
 matrices, so ``FrontCache`` reuses them while those bytes stay the same.
 
 The non-meshlet fused fallback (``render_frame_fused``, plain-packed
-scenes) replaces stages 1-3 with the classic setup (``transform_vertices``,
-``geometry_device``: K8C and K10), the streaming keys of its setup rows and
+scenes) replaces stages 1-3 with the classic setup
+(``geometry.stage_geometry_rows``: K10 with the transform folded in), the
+streaming keys of its setup rows and
 ``tritables.build_comb_table`` (``render_front_fallback``), then runs
 stages 4-7 as above.
 
@@ -110,14 +112,10 @@ def render_frame(statics: FrameStatics, state, model_mats, mvp_mats,
     stage has been issued."""
     cfg = statics.cfg
     st = statics.settings
-    clip, attrs = geometry.transform_vertices(
+    rows, valid, attrs_full, gstats = geometry.stage_geometry_rows(
         state.positions, state.vert_obj, state.normals, state.colors,
-        state.uvs, model_mats, mvp_mats,
-    )
-    on_stage("transform")
-    rows, valid, attrs_full, gstats = geometry.geometry_rows(
-        clip, attrs, state.tri_v, state.tri_mat, cfg, st.clip_budget,
-        local_tri=local_tri,
+        state.uvs, model_mats, mvp_mats, state.tri_v, state.tri_mat, cfg,
+        st.clip_budget, local_tri=local_tri,
     )
     on_stage("geometry")
     rec_i, rec_f, rec_box, tile_start, tile_count, bstats = binning.bin_rows(
@@ -182,19 +180,17 @@ def render_front(statics, state, model_mats, mvp_mats, on_stage=_no_stage,
 
 def render_front_fallback(statics, state, model_mats, mvp_mats,
                           on_stage=_no_stage):
-    """The non-meshlet fallback's front: transform, ``geometry_device``
-    (S = T + 7 * clip_budget setup rows), their streaming keys,
+    """The non-meshlet fallback's front: transform and setup
+    (``geometry.stage_geometry_rows``, S = T + 7 * clip_budget setup rows),
+    their streaming keys,
     ``build_comb_table``, sort + K2 and ``expand_table``.  Returns (rmeta,
     tbl_sorted, tbl_ext, comb, stats), as ``render_front`` does."""
     cfg = statics.cfg
-    clip, attrs = geometry.transform_vertices(
+    rows, valid, attrs_full, gstats = geometry.stage_geometry_rows(
         state.positions, state.vert_obj, state.normals, state.colors,
-        state.uvs, model_mats, mvp_mats,
-    )
-    on_stage("transform")
-    su, attrs_full, gstats = geometry.geometry_device(
-        clip, attrs, state.tri_v, state.tri_mat, cfg,
+        state.uvs, model_mats, mvp_mats, state.tri_v, state.tri_mat, cfg,
         statics.settings.clip_budget)
+    su = geometry.setup_from_rows(rows, valid)
     on_stage("geometry")
     keys = binsort.stream_keys(su.valid, su.x0, su.y0, su.x1, su.y1, su.x2,
                                su.y2, cfg)

@@ -265,7 +265,7 @@ class Renderer:
         On a CUDA device, build (where no library is built yet) and load
         the kernel libraries this renderer's route launches, in row slabs
         too: ``_build.ROUTE_SOURCES``' entry for its pipeline (the classic
-        route's K8C, K10, K12, K4 and K11, plain-packed, so no K5; the fused
+        route's K10, K12, K4 and K11, plain-packed, so no K5; the fused
         route's front, K8, K1, K6, K2, K9, with K3 / K3F and K7).  One nvcc
         process per source, all started together, or one after another
         with ``parallel=False``.

@@ -16,8 +16,7 @@ lines and seconds; any failure raises and the exit code is non-zero):
    ``shade_pack_kernel``, K11's ``shade_classic_kernel``, K8's and K8C's
    ``transform_kernel``, K10's ``vertex_kernel`` or ``tri_kernel`` (its
    cluster and grid designs), K9's ``front_meta_kernel`` or K12's
-   ``bin_kernel`` a stack frame or spills; K10's parent design under
-   ``experiments/`` is built beside them for phase 29), and hold
+   ``bin_kernel`` a stack frame or spills), and hold
    ``native.build_meshlets`` equal to the Python meshlets;
 3. each kernel against its plain torch version on the card, on config4 at
    subdiv 5 (20,480 triangles, 1080p), at the static camera and at a
@@ -272,11 +271,13 @@ lines and seconds; any failure raises and the exit code is non-zero):
    computes a fused front launches K8 and K9; the fallback's front (phase
    14) launches K9, not K8;
 29. the classic route's glue, kernels K8C, K10, K12 and K11
-   (``geometry.transform_vertices``, ``geometry.geometry_device``,
-   ``binning.bin_rows``, ``shade.shade_pack_classic``; ``--classic-glue``
-   runs phases 1, 2 and 29 alone): each against its plain version on the
-   card, bit for bit (clip and attribute rows; every TriangleSetup field,
-   the combined attributes and the counters; every record, box, tile
+   (``geometry.transform_vertices``, on no frame path since the transform
+   was folded into K10; ``geometry.stage_geometry_rows`` and
+   ``geometry_rows``; ``binning.bin_rows``, ``shade.shade_pack_classic``;
+   ``--classic-glue`` runs phases 1, 2 and 29 alone): each against its
+   plain version on the card, bit for bit (clip and attribute rows; every
+   TriangleSetup field, the combined attributes and the counters; every
+   record, box, tile
    start and count and the pair counters, entry for entry; the RGBA8
    frame of K4's visibility buffer on K12's records), on the gate scene
    at 800x600 on three orbit frames (the first timed with CUDA events
@@ -288,18 +289,19 @@ lines and seconds; any failure raises and the exit code is non-zero):
    under "classic", the second of two row slabs of the reference scene,
    and config4 subdiv 5 meshlet-packed with its local corner ids (K10's
    corner rows through K5); every frame EXACT against the port's oracle
-   or its golden.  K10 runs in both its designs (one thread block
-   cluster and one cooperative grid, ``geometry.k10_design`` forced) and
-   in its parent design (``experiments/k10_two_launch.cu``) beside them;
-   K10 and K12 also on zero triangles (a clip budget of 0 and of 4096:
-   S = 0 and S = 28,672 dead rows), a gate slab from tile row 19 and the
-   plain-packed config4 frames at subdiv 4 and 5, either side of K10's
-   crossover; the timed frames print each design's ms beside the
-   parent's, the plain version's and the bound.  One gate frame, every
-   plain version raising, launches K8C, K10 (once: its one launch), K12,
-   K4 and K11 and no fused kernel (``route_kernels``), K10 takes its
-   cluster design there, its device kernels a frame are counted by
-   ``torch.profiler`` (at most 6), and one whole classic frame runs under
+   or its golden.  K10 runs with the transform folded in and on K8C's
+   rows, each in both its designs (one thread block cluster and one
+   cooperative grid, ``geometry.k10_design`` forced); K10 and K12 also on
+   zero triangles (a clip budget of 0 and of 4096: S = 0 and S = 28,672
+   dead rows), a gate slab from tile row 19 and the plain-packed config4
+   frames at subdiv 4 and 5, either side of K10's crossover; the timed
+   frames print each leg's ms beside the plain version's and the bound.
+   One gate frame, every plain version raising, launches K10, K12, K4 and
+   K11 once each and nothing else (``route_kernels``), K10 takes its
+   cluster design there; a meshlet-packed classic frame launches K10
+   twice around K5, K12, K4 and K11; the gate frame's device kernels a
+   frame by ``torch.profiler``, in the first window of a new process,
+   hold the port's launches over the same frames and are at most 5; and one whole classic frame runs under
    ``torch.cuda.set_sync_debug_mode("error")``.
 
 The line before the last is a JSON object with one entry per kernel (its
@@ -316,6 +318,8 @@ import os
 import subprocess
 import sys
 import time
+
+T_START = time.perf_counter()  # this process's start: its age in readings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 24
@@ -1321,10 +1325,12 @@ def fallback_checks(dev, card, errs: dict, head5, head8):
     counts = dict(_build.launches)
     say(json.dumps(counts, sort_keys=True))
     for k in ("K2_run_bounds", "K3_raster", "K3F_raster_shade",
-              "K9_front_meta", "K8C_vertex_transform_rows", "K10_geometry"):
+              "K9_front_meta", "K10_geometry"):
         require(counts.get(k, 0) > 0, f"{k} was not launched in phase 14")
-    # the fallback's transform and setup are the classic route's
-    for k in ("K1_setup", "K5_gather_rows", "K8_vertex_transform"):
+    # the fallback's transform and setup are the classic route's: K10 with
+    # the transform folded in
+    for k in ("K1_setup", "K5_gather_rows", "K8_vertex_transform",
+              "K8C_vertex_transform_rows"):
         require(counts.get(k, 0) == 0, f"{k} ran on the fallback route")
 
     covered = int((aux_g["vis_tri"] >= 0).sum())
@@ -1913,8 +1919,7 @@ PLAIN_VERSIONS = (
 SLAB_KERNELS = ("K1_setup", "K2_run_bounds", "K3_raster", "K3F_raster_shade",
                 "K4_raster_classic", "K5_gather_rows", "K6_clip_tail",
                 "K7_shade_pack", "K8_vertex_transform", "K9_front_meta",
-                "K8C_vertex_transform_rows", "K10_geometry",
-                "K11_shade_pack_classic", "K12_binning")
+                "K10_geometry", "K11_shade_pack_classic", "K12_binning")
 
 
 class PlainVersionsRaise:
@@ -2108,6 +2113,9 @@ def slab_checks(dev, card: str, errs: dict, head5, head8) -> dict:
     say(json.dumps(counts, sort_keys=True))
     for k in SLAB_KERNELS:
         require(counts.get(k, 0) > 0, f"{k} was not launched in phase 19")
+    # a classic slab's transform is folded into K10
+    require(counts.get("K8C_vertex_transform_rows", 0) == 0,
+            "K8C was launched in phase 19")
 
     if n_cards >= 2:
         cards = make_render_mesh(torch.device("cuda", i)
@@ -2921,117 +2929,20 @@ def front_meta_checks(dev, card: str, errs: dict, r8, cam8) -> dict:
 # ---------------------------------------------------------------------------
 
 # operations a unit of work, counted from the sources: K8C's three matrix
-# products a vertex (64 fmul / fadd); K10's vertex snap and outcode (~60 a
+# products a vertex (64 fmul / fadd), which K10 runs too since the
+# transform was folded into it; K10's vertex snap and outcode (~60 a
 # vertex) and a triangle's classification and setup row (~40); K11's
-# interpolation of a covered render sample (~160: edges, weights, 12
-# attributes, uv derivatives) with the material (~4), the gate frame's
-# untextured, unlit mode
+# per-sample interpolation of a covered render sample (~135: edge values,
+# weights, 12 attributes, raw uv derivatives) with the material (~4), the
+# gate frame's untextured, unlit mode, and each distinct winner's terms
+# once (~30: three edges' coefficients, six gradients)
 K8C_OPS_PER_VERT = 64
+K8C_BYTES_IN_PER_VERT = 12 + 12 + 16 + 8 + 4  # position, normal, colour, uv, id
 K10_OPS_PER_VERT = 60
 K10_OPS_PER_TRI = 40
-K11_OPS_PER_SAMPLE = 170
+K11_OPS_PER_SAMPLE = 140
+K11_OPS_PER_WINNER = 30
 GLUE_REPS = (10, 3)  # CUDA-event repetitions (kernel, plain)
-
-
-# the parent design kept under experiments/ (K10's: a vertex launch, then
-# one cooperative grid), built in phase 2 beside csrc and timed beside the
-# kernel in phase 29, through the calls its wrapper made
-PARENT_SOURCES = {"K10": ("geometry.cu", "experiments/k10_two_launch.cu")}
-PARENT_LIBS: dict = {}
-
-
-def _parent_argtypes() -> dict:
-    import ctypes
-
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return {"ash_geometry_vertices": [p] * 4 + [i] * 7 + [f, f] + [p],
-            "ash_geometry_tris": [p] * 10 + [i] * 9 + [f, f] + [p]}
-
-
-def start_parent_builds() -> dict:
-    """One nvcc a parent design of ``PARENT_SOURCES``, started now, with
-    its csrc's flags and ``-I csrc``: {kernel: (library path, process)}."""
-    from ash_renderer_tpu_torch import _build
-
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    procs = {}
-    for k, (source, path) in PARENT_SOURCES.items():
-        out = os.path.join(_build.BUILD_DIR, f"parent_{k}.so")
-        cmd = _build._command(source, out)
-        cmd = cmd[:1] + ["-I", _build.CSRC] + cmd[1:-1] + [
-            os.path.join(ROOT, path)]
-        procs[k] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True))
-    return procs
-
-
-def load_parents(procs: dict) -> None:
-    """Wait for ``start_parent_builds``' compilers and load the libraries
-    into ``PARENT_LIBS``, their entry points' argtypes set."""
-    import ctypes
-
-    argtypes = _parent_argtypes()
-    for k, (out, proc) in procs.items():
-        log = proc.communicate()[0]
-        require(proc.returncode == 0, f"parent {k}: build failed\n{log}")
-        lib = ctypes.CDLL(out)
-        for entry, types in argtypes.items():
-            if hasattr(lib, entry):
-                getattr(lib, entry).argtypes = types
-                getattr(lib, entry).restype = ctypes.c_int
-        PARENT_LIBS[k] = lib
-    say(f"built the parent designs {sorted(PARENT_LIBS)}: "
-        + ", ".join(path for _, path in PARENT_SOURCES.values()))
-
-
-def _parent_call(lib, entry: str, *args) -> None:
-    import torch
-
-    rc = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
-    require(rc == 0, f"parent {entry}: CUDA error {rc}")
-
-
-def parent_k10(lib, clip, attrs, tri_v, tri_mat, cfg, budget,
-               local_tri=None):
-    """The parent design's ``geometry_rows`` on ``lib``
-    (``experiments/k10_two_launch.cu``): the vertex launch, K5's gather on
-    a meshlet-packed scene, the cooperative triangle launch."""
-    import torch
-
-    from ash_renderer_tpu_torch.ops import geometry, meshlet_gather
-
-    dev = clip.device
-    v, t = clip.shape[0], tri_v.shape[0]
-    s = t + geometry.MAX_CLIP_TRIS * budget
-    snap = (cfg.width, cfg.height, cfg.min_coord, cfg.max_coord_x,
-            cfg.max_coord_y, cfg.subpixel_scale)
-    gx, gy = (float(g) for g in geometry.guard_factors(cfg))
-    attrs_full = torch.empty((v + geometry.MAX_CLIP_VERTS * budget,
-                              geometry.ATTR_COLS), dtype=torch.float32,
-                             device=dev)
-    n_vtx, n_rows = v * geometry.VTX_COLS, s * 20
-    n_scratch = len(geometry.COUNTERS) + 3 * -(-t // 4096) + budget + t
-    words = torch.empty(n_vtx + n_rows + n_scratch, dtype=torch.int32,
-                        device=dev)
-    vtx = words[:n_vtx].view(v, geometry.VTX_COLS)
-    rows = words[n_vtx:n_vtx + n_rows].view(s, 20)
-    scratch = words[n_vtx + n_rows:]
-    valid = torch.empty(s, dtype=torch.bool, device=dev)
-    _parent_call(lib, "ash_geometry_vertices", clip.data_ptr(),
-                 attrs.data_ptr(), vtx.data_ptr(), attrs_full.data_ptr(), v,
-                 *snap, gx, gy)
-    corners = (None if local_tri is None
-               else meshlet_gather.gather_tri_rows(vtx, local_tri))
-    _parent_call(lib, "ash_geometry_tris", vtx.data_ptr(),
-                 None if corners is None else corners.data_ptr(),
-                 clip.data_ptr(), attrs.data_ptr(), tri_v.data_ptr(),
-                 tri_mat.data_ptr(), scratch.data_ptr(), rows.data_ptr(),
-                 valid.data_ptr(), attrs_full.data_ptr(), v, t, budget, *snap,
-                 gx, gy)
-    stats = dict(zip(geometry.COUNTERS,
-                     scratch[: len(geometry.COUNTERS)].unbind()))
-    return rows, valid, attrs_full, {**stats, "n_setup": s}
 
 
 class forced_design:
@@ -3146,38 +3057,48 @@ def k12_case(rows, valid, cfg, max_pairs: int, label: str, errs: dict,
     return out, (k_ms, p_ms, None, bound)
 
 
-def k10_case(g_args, local_tri, label: str, errs: dict, reps=(0, 0)):
-    """K10 (``geometry.geometry_rows``) against its plain version
-    (``geometry_device_plain``), bit for bit: the setup table against
+def k10_case(s_args, local_tri, label: str, errs: dict, reps=(0, 0)):
+    """K10 against its plain stage (``transform_vertices_plain``, then
+    ``geometry_device_plain``), bit for bit: the setup table against
     ``setup_table`` of the plain fields, the valid flags, the combined
-    attributes and the counters; in the design the wrapper takes
-    (``geometry.k10_design``), in the other one, and in the parent design
-    (``parent_k10``).  ``g_args``: (clip, attrs, tri_v, tri_mat, cfg,
-    clip_budget).  Folds the max |kernel - plain| into ``errs``.  Returns
-    (rows, valid, attrs_full, stats of its own design, counters as ints,
-    its own design's ms, {leg: ms}, plain ms; the ms None without
-    ``reps``)."""
+    attributes and the counters; with the transform folded in
+    (``geometry.stage_geometry_rows``, the frame's call) in the design the
+    wrapper takes (``geometry.k10_design``) and in the other one, and on
+    K8C's rows (``transform_vertices``, then ``geometry_rows``: the pair
+    the frame ran before the fold) in each design.  ``s_args``: the
+    scene's positions, vert_obj, normals, colors, uvs, the model and MVP
+    matrices, tri_v, tri_mat, cfg and the clip budget.  Folds the max
+    |kernel - plain| into ``errs``.  Returns (rows, valid, attrs_full,
+    stats of the folded K10 in its own design, counters as ints, its ms,
+    {leg: ms}, the plain stage's ms; the ms None without ``reps``)."""
     from ash_renderer_tpu_torch.ops import geometry
 
-    clip, _, tri_v, _, _, budget = g_args
+    tri_v, budget = s_args[7], s_args[10]
     design = geometry.k10_design(tri_v.shape[0])
-    (su_p, af_p, gst_p), p_ms = run_timed(
-        lambda: geometry.geometry_device_plain(*g_args, local_tri=local_tri),
-        reps[1])
+    other = "grid" if design == "cluster" else "cluster"
+
+    def plain():
+        clip, attrs = geometry.transform_vertices_plain(*s_args[:7])
+        return geometry.geometry_device_plain(clip, attrs, *s_args[7:],
+                                              local_tri=local_tri)
+
+    (su_p, af_p, gst_p), p_ms = run_timed(plain, reps[1])
     w_rows, want = geometry.setup_table(su_p), {
         k: int(v) for k, v in gst_p.items()}
-    def call():
-        return geometry.geometry_rows(*g_args, local_tri=local_tri)
 
-    def forced():
-        with forced_design("grid" if design == "cluster" else "cluster"):
-            return call()
+    def folded(d):
+        with forced_design(d):
+            return geometry.stage_geometry_rows(*s_args, local_tri=local_tri)
 
-    # the wrapper's own design, the other one forced, the parent design
-    legs = {design: call, "grid" if design == "cluster" else "cluster": forced}
-    if "K10" in PARENT_LIBS:
-        legs["parent"] = lambda: parent_k10(PARENT_LIBS["K10"], *g_args,
-                                            local_tri)
+    def pair(d):
+        with forced_design(d):
+            clip, attrs = geometry.transform_vertices(*s_args[:7])
+            return geometry.geometry_rows(clip, attrs, *s_args[7:],
+                                          local_tri=local_tri)
+
+    legs = {design: lambda: folded(design), other: lambda: folded(other),
+            f"K8C+K10 {design}": lambda: pair(design),
+            f"K8C+K10 {other}": lambda: pair(other)}
     out, ms = None, {}
     for leg, fn in legs.items():
         (rows, valid, af, gst), ms[leg] = run_timed(fn, reps[0])
@@ -3185,13 +3106,13 @@ def k10_case(g_args, local_tri, label: str, errs: dict, reps=(0, 0)):
                         (_bits(af), _bits(af_p))])
         counters = {k: int(v) for k, v in gst.items()}
         require(err == 0 and counters == want,
-                f"K10 ({leg}) differs from its plain version ({label}): "
+                f"K10 ({leg}) differs from its plain stage ({label}): "
                 f"{err}, counters {counters} != {want}")
         errs["K10"] = max(errs.get("K10", 0), err)
         out = out or (rows, valid, af, gst, counters)
-    say(f"{label}: K10 bit-equal to plain in {', '.join(legs)} (its own: "
-        f"{design}; {clip.shape[0]} vertices, {tri_v.shape[0]} triangles, "
-        f"budget {budget})")
+    say(f"{label}: K10 bit-equal to the plain stage in {', '.join(legs)} "
+        f"(its own: {design}, the transform folded in; {s_args[0].shape[0]} "
+        f"vertices, {tri_v.shape[0]} triangles, budget {budget})")
     return (*out, ms[design], ms, p_ms)
 
 
@@ -3202,10 +3123,11 @@ def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
     the classic frame of renderer ``r``'s scene for camera ``cam``
     (``statics`` the classic statics, by default ``classic_statics(r)``;
     ``local_tri`` takes K10's corner rows through K5; ``tile_rows`` the
-    slab of that many tile rows from ``tile_row0``): the transform's clip
-    and attribute rows, the setup table (``geometry_rows``, against
-    ``setup_table`` of the plain version's fields), the valid flags, the
-    combined attributes and the counters, K12's binning of that table
+    slab of that many tile rows from ``tile_row0``): K8C's clip and
+    attribute rows (``transform_vertices``, on no frame path), K10's setup
+    table with the transform folded in and on K8C's rows (``k10_case``,
+    against ``setup_table`` of the plain stage's fields), the valid flags,
+    the combined attributes and the counters, K12's binning of that table
     (``k12_case``; also at each budget of ``cut_pairs``, which must cut
     the frame's pairs), and the RGBA8 frame of K4's visibility buffer on
     K12's records.  Folds each max |kernel - plain| into ``errs``.
@@ -3222,20 +3144,21 @@ def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
     cfg, st, s = statics.cfg, statics.settings, r.state
     mm_t, mvp_t, cam_t = frame_mats(r, cam)
     kr, pr = GLUE_REPS if timed else (0, 0)
-    tv_args = (s.positions, s.vert_obj, s.normals, s.colors, s.uvs, mm_t,
-               mvp_t)
+    s_args = (s.positions, s.vert_obj, s.normals, s.colors, s.uvs, mm_t,
+              mvp_t, s.tri_v, s.tri_mat, cfg, st.clip_budget)
+    # K8C runs on no frame path since its transform was folded into K10;
+    # it stays a public entry, held here alone
     (clip, attrs), k8_ms = run_timed(
-        lambda: geometry.transform_vertices(*tv_args), kr)
+        lambda: geometry.transform_vertices(*s_args[:7]), kr)
     (clip_p, attrs_p), p8_ms = run_timed(
-        lambda: geometry.transform_vertices_plain(*tv_args), pr)
+        lambda: geometry.transform_vertices_plain(*s_args[:7]), pr)
     err8 = _max_err([(_bits(clip), _bits(clip_p)),
                      (_bits(attrs), _bits(attrs_p))])
     require(err8 == 0, f"K8C differs from its plain version ({label}): {err8}")
     errs["K8C"] = max(errs.get("K8C", 0), err8)
 
-    g_args = (clip, attrs, s.tri_v, s.tri_mat, cfg, st.clip_budget)
     rows, valid, af, gst, counters, k10_ms, k10_legs, p10_ms = k10_case(
-        g_args, local_tri, label, errs, (kr, pr))
+        s_args, local_tri, label, errs, (kr, pr))
 
     (rec_i, rec_f, rec_box, start, count, _), t12 = k12_case(
         rows, valid, cfg, st.max_pairs, label, errs, tile_row0, tile_rows,
@@ -3265,7 +3188,7 @@ def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
     errs["K11"] = max(errs.get("K11", 0), err11)
     covered = int((vis_t >= 0).sum())
     say(f"{label}: K8C, K10{' (K5 corners)' if local_tri is not None else ''}"
-        f", K12 and K11 bit-equal to plain; {clip.shape[0]} vertices, "
+        f", K12 and K11 bit-equal to plain; {s.positions.shape[0]} vertices, "
         f"{s.tri_v.shape[0]} triangles, setup rows {gst['n_setup']}, "
         f"clipped {counters['n_clipped']} (overflow "
         f"{counters['clip_overflow']}), valid {counters['n_valid']}, covered "
@@ -3274,19 +3197,20 @@ def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
         f"mode {mode}")
     timing = None
     if timed:
-        v, t = clip.shape[0], s.tri_v.shape[0]
+        v, t = s.positions.shape[0], s.tri_v.shape[0]
         n_setup, b = gst["n_setup"], st.clip_budget
         # K8C: positions, normals, colours, uvs, object ids read once, the
         # clip and attribute rows written once
-        n8 = v * (12 + 12 + 16 + 8 + 4) + v * (16 + 48)
-        # K10, its function's inputs read once and outputs written once:
-        # clip and attribute rows, tri_v, tri_mat (and local_tri) read; the
-        # setup's fields (SETUP_ROW_FIELDS' words and the valid byte, not
-        # the table's zero words), the combined attribute rows and the
+        n8 = v * K8C_BYTES_IN_PER_VERT + v * (16 + 48)
+        # K10 with the transform folded in, its function's inputs read once
+        # and outputs written once: the scene's vertex tensors (K8C's
+        # inputs) and the matrices, tri_v, tri_mat (and local_tri) read;
+        # the setup's fields (SETUP_ROW_FIELDS' words and the valid byte,
+        # not the table's zero words), the combined attribute rows and the
         # counters written (not a meshlet-packed scene's vertex rows,
         # scratch for K5's gather)
-        n10 = (v * (16 + 48) + t * (12 + 4)
-               + (0 if local_tri is None else t * 12)
+        n10 = (v * K8C_BYTES_IN_PER_VERT + mm_t.numel() * 4 * 2
+               + t * (12 + 4) + (0 if local_tri is None else t * 12)
                + n_setup * (4 * len(SETUP_ROW_FIELDS) + 1)
                + (v + 9 * b) * 48 + 4 * len(geometry.COUNTERS))
         # K11: the winner ids read, each distinct winner's shading words
@@ -3299,10 +3223,11 @@ def classic_glue_case(r, cam, label: str, errs: dict, timed: bool = False,
             "K8C": (k8_ms, p8_ms, None,
                     bound_ms(n8, v * K8C_OPS_PER_VERT)),
             "K10": (k10_ms, p10_ms, None,
-                    bound_ms(n10, v * K10_OPS_PER_VERT
+                    bound_ms(n10, v * (K8C_OPS_PER_VERT + K10_OPS_PER_VERT)
                              + t * K10_OPS_PER_TRI)),
             "K11": (k11_ms, p11_ms, None,
-                    bound_ms(n11, covered * K11_OPS_PER_SAMPLE)),
+                    bound_ms(n11, covered * K11_OPS_PER_SAMPLE
+                             + n_win * K11_OPS_PER_WINNER)),
             "K12": t12,
         }
         _say_legs("K10", label, k10_legs, p10_ms, timing["K10"][3])
@@ -3337,24 +3262,86 @@ def _clip_scene(seed: int, nv: int, nt: int, spread: float, zoff: float):
     return sc
 
 
-def classic_launches_per_frame(r, cam, n: int = 4) -> float:
-    """Device kernels a frame of renderer ``r`` launches (``torch.profiler``
-    tracing the device alone over ``n`` frames after a warm one), copies
-    and memsets not counted."""
+# device kernels a classic gate frame may launch: the port's K10, K12, K4
+# and K11, and one torch op of the frame's glue
+CLASSIC_DEVICE_KERNELS = 5
+# the port's kernel functions (NO_FRAME_KERNELS' and K1's, K6's), by which
+# the profiler's names are told from torch's
+PORT_KERNEL_FUNCS = tuple(k for _, k, _ in NO_FRAME_KERNELS) + (
+    "setup_kernel", "clip_tail_kernel")
+
+
+def classic_launches_per_frame(r, cam, n: int = 4):
+    """(device kernels a frame of renderer ``r`` launches by
+    ``torch.profiler`` tracing the device alone over ``n`` frames after a
+    warm one, copies and memsets not counted; the port's launches a frame
+    by ``_build.launches`` over the same frames; the port's kernels a frame
+    among the profiler's; {name: count a frame} of the device kernels that
+    are not the port's; {kernel function: count a frame} of the port's),
+    from one window."""
+    import collections
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from ash_renderer_tpu_torch import _build
+
     r.render_frame(cam)
     torch.cuda.synchronize()
+    _build.launches.clear()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             r.render_frame(cam)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+    n_port = sum(_build.launches.values()) / n
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and not e.name.startswith(("Memcpy", "Memset"))]
-    return len(kernels) / n
+    others = collections.Counter(
+        e.name for e in kernels
+        if not any(f in e.name for f in PORT_KERNEL_FUNCS))
+    seen = (len(kernels) - sum(others.values())) / n
+    port = collections.Counter(
+        f for e in kernels for f in PORT_KERNEL_FUNCS if f in e.name)
+    return (len(kernels) / n, n_port, seen,
+            {k: v / n for k, v in others.items()},
+            {k: v / n for k, v in port.items()})
+
+
+# the gate orbit's frame that phase 29's profiler window traces
+GATE_PROFILED_FRAME = 3
+
+
+def gate_profiler_window(dev) -> None:
+    """``classic_launches_per_frame`` of the gate scene at 800x600 on its
+    own route (classic), printed as one JSON list: the child process of
+    ``gate_launches_in_child``."""
+    from ash_renderer_tpu_torch.camera import orbit_path
+    from ash_renderer_tpu_torch.config import RendererSettings
+    from ash_renderer_tpu_torch.renderer import Renderer
+
+    rg = Renderer(gate_scene()[0], RendererSettings(), device=dev)
+    orbit = orbit_path(N_FRAMES, radius=6.0, center=[0.0, 0.0, 3.5])
+    print(json.dumps(classic_launches_per_frame(
+        rg, orbit[GATE_PROFILED_FRAME])))
+
+
+def gate_launches_in_child():
+    """``classic_launches_per_frame`` of the gate frame, taken in a new
+    process of this script (``--gate-profiler-window``) whose profiler
+    window is its first: in a long process the profiler loses kernel
+    records (PERF.md §7), so a count made there could pass on an
+    undercount or fail on a frame that launched every kernel.  The child
+    loads the kernels this run built (``_build``'s cache) and is stopped
+    at its time limit."""
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--gate-profiler-window"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    require(out.returncode == 0, "the profiler's child process exited "
+            f"{out.returncode}: {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def sources_launched(fn) -> set:
@@ -3400,13 +3387,15 @@ def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
     frames of ``CROSSOVER_SUBDIVS`` and the meshlet-packed ``r5`` (config4
     subdiv 5) at ``cam5`` with its local corner ids (K5; timed too, K10
     with K5's gather); every frame EXACT against the port's oracle or its
-    golden where it has one; K10 in both its designs and in its parent
-    design.  Then one gate frame's launches (route ``classic``: K8C, K10
-    once, K12 once, K4, K11, no fused kernel; K10 in its cluster
-    design), device kernels a frame
-    (at most 6), one whole classic frame
-    (``pipeline.render_frame``,
-    its matrices on the card) under
+    golden where it has one; K10 with the transform folded in and on K8C's
+    rows, each in both its designs.  Then one gate frame's launches (route
+    ``classic``: K10, K12, K4 and K11 once each, no K8C and no fused
+    kernel; K10 in its cluster design), a meshlet-packed classic frame's
+    (K10 twice around K5, K12, K4, K11), device kernels a frame by
+    ``torch.profiler`` in a new process (``gate_launches_in_child``: the
+    port's kernels among them equal to its launches over the same frames,
+    and at most ``CLASSIC_DEVICE_KERNELS`` in all), one whole classic frame
+    (``pipeline.render_frame``, its matrices on the card) under
     ``torch.cuda.set_sync_debug_mode("error")``, and the Renderer's own
     frame with no synchronizing call but its three uploads; the sources
     whose kernels a classic frame and a fused one (``r5``'s own route)
@@ -3423,7 +3412,8 @@ def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
                                                    config4_million_tri)
     from ash_renderer_tpu_torch.camera import Camera, orbit_path
     from ash_renderer_tpu_torch.config import RendererSettings
-    from ash_renderer_tpu_torch.ops import binning, geometry
+    from ash_renderer_tpu_torch.ops import (binning, geometry, meshlet_gather,
+                                            raster_visibility, shade)
     from ash_renderer_tpu_torch.parallel import make_render_mesh, slab_rows
     from ash_renderer_tpu_torch.renderer import Renderer
 
@@ -3491,12 +3481,11 @@ def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
     # zero triangles: a clip budget of 0 (S = 0) and the gate's (S =
     # 28,672 dead rows), K10's table binned by K12
     mats0 = frame_mats(rg, orbit[0])
-    clip0, attrs0 = geometry.transform_vertices(
-        rg.state.positions, rg.state.vert_obj, rg.state.normals,
-        rg.state.colors, rg.state.uvs, *mats0[:2])
     for budget in (0, rg.statics.settings.clip_budget):
-        g0 = (clip0, attrs0, rg.state.tri_v[:0], rg.state.tri_mat[:0],
-              rg.statics.cfg, budget)
+        g0 = (rg.state.positions, rg.state.vert_obj, rg.state.normals,
+              rg.state.colors, rg.state.uvs, *mats0[:2],
+              rg.state.tri_v[:0], rg.state.tri_mat[:0], rg.statics.cfg,
+              budget)
         label = f"zero triangles, clip budget {budget}"
         rows0, valid0, _, _, c0, _, _, _ = k10_case(g0, None, label, errs)
         require(rows0.shape[0] == 7 * budget and c0["n_valid"] == 0,
@@ -3539,12 +3528,32 @@ def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
     counts = dict(_build.launches)
     say(f"gate frame launches: {json.dumps(counts, sort_keys=True)}; route "
         + require_route("gate frame", counts, rg))
-    require(counts.get(geometry.KERNEL) == 1 and counts.get(binning.KERNEL) == 1,
-            f"gate frame: K10 and K12 do not launch once each: {counts}")
+    want_g = {geometry.KERNEL: 1, binning.KERNEL: 1,
+              raster_visibility.KERNEL: 1, shade.KERNEL: 1}
+    require(counts == want_g, f"gate frame: launches {counts}, not K10, K12, "
+            "K4 and K11 once each (no K8C: its transform is K10's)")
     design = geometry.k10_design(rg.state.tri_v.shape[0])
     require(design == "cluster", f"gate frame: K10 takes the {design}")
-    say("gate frame: K10 one launch (one thread block cluster's barriers), "
-        "K12 one launch (a cooperative grid)")
+    say("gate frame: 4 launches of the port (5 with K8C): K10 once (one "
+        "thread block cluster's barriers, the transform folded in), K12 once "
+        "(a cooperative grid), K4, K11")
+    # a meshlet-packed classic frame: K10's vertex and triangle launches
+    # around K5's corner gather, then K12, K4, K11; no K8C
+    mats5 = frame_mats(r5, cam5)
+    statics5 = classic_statics(r5)
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    with PlainVersionsRaise():
+        pipeline.render_frame(statics5, r5.state, *mats5, local_tri=lt)
+    torch.cuda.synchronize()
+    counts5 = dict(_build.launches)
+    want5 = {geometry.KERNEL: 2, meshlet_gather.KERNEL: 1, binning.KERNEL: 1,
+             raster_visibility.KERNEL: 1, shade.KERNEL: 1}
+    require(counts5 == want5, f"config4 subdiv 5 meshlet-packed classic "
+            f"frame: launches {counts5}, not {want5}")
+    say(f"config4 subdiv 5 meshlet-packed classic frame: "
+        f"{sum(counts5.values())} launches of the port (7 with K8C): "
+        f"{json.dumps(counts5, sort_keys=True)}")
     for label, r, cam in (("gate frame", rg, orbit[4]),
                           ("config4 subdiv 5 frame", r5, orbit[4])):
         used = sources_launched(lambda: r.read_frame(r.render_frame(cam)[0]))
@@ -3553,11 +3562,29 @@ def classic_glue_checks(dev, card: str, errs: dict, r5, cam5, g5) -> dict:
                 f", not the {r.settings.pipeline} route's {sorted(want)}")
         say(f"{label} ({r.settings.pipeline}): its kernels' sources are "
             f"_build.ROUTE_SOURCES[{r.settings.pipeline!r}]")
-    n_dev = classic_launches_per_frame(rg, orbit[3])
-    require(n_dev <= 6, f"gate frame: {n_dev} device kernels a frame")
+    n_dev, n_port, seen, others, _ = gate_launches_in_child()
+    require(n_port == len(want_g) and seen == n_port and n_dev >= n_port,
+            f"gate frame: the profiler saw {n_dev} device kernels a frame, "
+            f"{seen} of them the port's, against the port's {n_port} "
+            f"launches (_build.launches over the same frames); not the "
+            f"port's: {others}")
+    require(n_dev <= CLASSIC_DEVICE_KERNELS,
+            f"gate frame: {n_dev} device kernels a frame, more than "
+            f"{CLASSIC_DEVICE_KERNELS}; not the port's: {others}")
     say(f"[{card}] gate frame (classic, 800x600): {n_dev:.1f} device "
-        "kernels a frame (7 with K10's two launches, 186 with plain "
-        "binning, 701 with every glue stage plain)")
+        f"kernels a frame, {seen:.1f} of them the port's, in a new process's "
+        f"first profiler window; not the port's: "
+        f"{json.dumps(others, sort_keys=True)} (6 with K8C, 7 with K10's "
+        "two launches, 186 with plain binning, 701 with every glue stage "
+        "plain)")
+    # the same window in this process, read and not checked: whether a
+    # long process's profiler still loses records (PERF.md §7)
+    n_dev_here, n_port_here, seen_here, _, port_here = (
+        classic_launches_per_frame(rg, orbit[GATE_PROFILED_FRAME]))
+    say(f"gate frame, the same window in this process after "
+        f"{time.perf_counter() - T_START:.0f} s: {n_dev_here:.2f} device "
+        f"kernels a frame, {seen_here:.2f} of the port's {n_port_here:.2f}: "
+        f"{json.dumps(port_here, sort_keys=True)}")
     # one whole classic frame with its matrices on the card (the Renderer's
     # uploads of them from the host are copies that synchronize)
     mats = frame_mats(rg, orbit[5])
@@ -4137,9 +4164,9 @@ def route_kernels(r, cached: bool = False):
     exactly where ``pipeline.shade_mode_for`` gives its statics a shade
     mode (the table caps included), and the front's kernels (K8, K1, K6,
     K2, K9) on a frame that computes its front, none on a ``cached`` one
-    (a front-cache hit); on the classic route K8C, K10, K12, K4 and K11,
-    and no fused kernel.  The Renderer packs the classic route plainly, so
-    K5 is never among them."""
+    (a front-cache hit); on the classic route K10, K12, K4 and K11, and no
+    fused kernel and no K8C (its transform is K10's).  The Renderer packs
+    the classic route plainly, so K5 is never among them."""
     from ash_renderer_tpu_torch import pipeline
 
     from ash_renderer_tpu_torch.ops import (binning, front_meta, geometry,
@@ -4153,11 +4180,12 @@ def route_kernels(r, cached: bool = False):
                for f in (False, True)}  # K3 and K3F at 8 and 4 rows
     front = {vertex_transform.KERNEL, "K1_setup", "K6_clip_tail",
              "K2_run_bounds", front_meta.KERNEL}
-    classic = {geometry.KERNEL_TRANSFORM, geometry.KERNEL, binning.KERNEL,
-               "K4_raster_classic", shade.KERNEL}
+    classic = {geometry.KERNEL, binning.KERNEL, "K4_raster_classic",
+               shade.KERNEL}
     if st.pipeline == "classic":
         return route, classic, {
-            "K5_gather_rows", shade_pack.KERNEL, *front, *rasters}
+            "K5_gather_rows", geometry.KERNEL_TRANSFORM, shade_pack.KERNEL,
+            *front, *rasters}
     s = r.state
     phase_f = pipeline.shade_mode_for(
         r.statics, s.materials, s.atlas if r.statics.has_atlas else None,
@@ -4165,7 +4193,8 @@ def route_kernels(r, cached: bool = False):
     k3 = fk.kernel_name(r.cfg.tile_h, phase_f)
     shade_k = {shade_pack.KERNEL}
     must = {k3, *(shade_k if phase_f else ())}
-    must_not = {"K5_gather_rows", *classic, *(rasters - {k3}),
+    must_not = {"K5_gather_rows", geometry.KERNEL_TRANSFORM, *classic,
+                *(rasters - {k3}),
                 *(() if phase_f else shade_k)}
     return route, must | (set() if cached else front), must_not | (
         front if cached else set())
@@ -4357,8 +4386,10 @@ def main(argv=None) -> int:
                     "prints no kernels or ok line")
     ap.add_argument("--classic-glue", action="store_true",
                     help="run phases 1, 2 and 29 alone (the classic route's "
-                    "glue: K8C, K10, K12, K11); prints no kernels or ok "
-                    "line")
+                    "glue: K8C, K10 with the transform folded in, K12, K11); "
+                    "prints no kernels or ok line")
+    ap.add_argument("--gate-profiler-window", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--front-glue", action="store_true",
                     help="run phases 1, 2, 27 and 28 alone (the vertex "
                     "transform K8, the expansion and range meta K9); prints "
@@ -4376,6 +4407,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.gate_profiler_window:
+        gate_profiler_window(dev)
+        return 0
 
     global CARD
     with Phase("1 card"):
@@ -4390,10 +4424,8 @@ def main(argv=None) -> int:
 
     with Phase("2 build"):
         t0 = time.perf_counter()
-        parents = start_parent_builds()
         paths, logs = _build.build(tuple(_build.KERNELS) + _build.HOST_SOURCES,
                                    ptxas_report=True)
-        load_parents(parents)
         for src in paths:
             _build.load(src)
         say(f"built {len(logs)} of {len(paths)} libraries in "
@@ -4863,7 +4895,8 @@ def main(argv=None) -> int:
         "K9": ("K9_front_meta", "ash_renderer_tpu_torch/csrc/front_meta.cu",
                "none (ash_renderer_tpu/pipeline.py:458, XLA glue)", counts),
         # no Pallas kernel: the classic route's transform and setup, and its
-        # shade + pack, are XLA glue (_stage_geometry, _stage_shade)
+        # shade + pack, are XLA glue (_stage_geometry, _stage_shade); K8C's
+        # transform is folded into K10, so no frame path launches K8C
         "K8C": ("K8C_vertex_transform_rows",
                 "ash_renderer_tpu_torch/csrc/transform.cu",
                 "none (ash_renderer_tpu/pipeline.py:680, XLA glue)", counts_g),
@@ -4879,11 +4912,14 @@ def main(argv=None) -> int:
     }
     kernels = []
     for k, (name, src, rep, n) in meta.items():
-        require(n.get(name, 0) > 0, f"{name}: no launch in its counted run")
+        if k == "K8C":
+            require(n.get(name, 0) == 0, f"{name}: launched on a frame path")
+        else:
+            require(n.get(name, 0) > 0, f"{name}: no launch in its counted run")
         kt, pt, lt, (bt, by) = timing[k]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": n[name], "max_abs_err": errs[k], "ms": kt,
+            "launches": n.get(name, 0), "max_abs_err": errs[k], "ms": kt,
             "plain_ms": pt, "bound_ms": bt, "bound_by": by, "library_ms": lt,
         })
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -431,7 +431,8 @@ def test_warmup_builds_the_cuda_auto_routes_libraries(config, monkeypatch):
     rule (``renderer.auto_route``, called here without a card): warm-up
     builds and loads the sources of the route it resolved to
     (``_build.ROUTE_SOURCES``: the fused route's seven, K7's with them, or
-    the classic route's K8C, K10, K12, K4 and K11)."""
+    the classic route's K10, with the transform folded in, K12, K4 and
+    K11)."""
     from ash_renderer_tpu_torch.renderer import auto_route
 
     scene, settings, _ = benchmarks.ALL_CONFIGS[config]()
@@ -455,8 +456,7 @@ def test_warmup_builds_the_cuda_auto_routes_libraries(config, monkeypatch):
 # requires them of a frame; the Renderer packs the classic route plainly,
 # so K5 is not among them
 ROUTE_WRAPPERS = {
-    "classic": {("geometry", "transform_vertices"): "K8C",
-                ("geometry", "geometry_rows"): "K10",
+    "classic": {("geometry", "stage_geometry_rows"): "K10",
                 ("binning", "bin_rows"): "K12",
                 ("raster_visibility", "rasterize_visibility"): "K4",
                 ("shade", "shade_pack_classic"): "K11"},
